@@ -1,4 +1,4 @@
-"""lz4jpeg_tpu — a TPU-native codec framework.
+"""lz4jpeg_tpu — a JAX codec framework for the accelerator.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference C
 project ``CyrilMorel42/LZ4-JPEG``: an LZ4-style lossless block codec and a
@@ -8,12 +8,11 @@ logging/trace utilities and random-input generators the reference ships.
 Layout (mirrors SURVEY.md §7's layer map):
 
 - ``oracle/``   — exact NumPy/Python transcriptions of the reference semantics;
-                  the ground truth every TPU kernel is verified against.
+                  the ground truth every device kernel is verified against.
 - ``formats/``  — container/bitstream formats (LZ4 frame pack/unpack).
-- ``ops/``      — batched TPU kernels (DCT, quantize, zigzag, RLE, Huffman,
-                  match finding) as XLA-fused jnp formulations (measured
-                  faster than hand-written Pallas on this chip —
-                  ``results/pallas_ab.json``).
+- ``ops/``      — batched device ops (DCT, quantize, zigzag, RLE, Huffman,
+                  match finding) as XLA-fused jnp formulations, plus the
+                  fused forward kernel (``ops/pallas_fwd.py``).
 - ``models/``   — codec pipelines (LZ4, JPEG, LZW) composing the ops.
 - ``parallel/`` — device mesh, shard_map data parallelism, ordered gather,
                   multi-host utilities.

@@ -1,14 +1,13 @@
 """Entropy-stage placement A/B: host C++ pack vs on-device pack.
 
-VERDICT r1 #7: ``pack_symbols_device`` existed without a data-backed
-decision on whether the production entropy stage should run on the chip.
-This sweep measures both placements on the real platform and commits the
-numbers (``results/entropy_ab.json``).
+Whether the production entropy stage should run on the device: this
+sweep measures both placements of the bit packing on one platform and
+writes the numbers to a JSON artifact.
 
 The trade under test (container path ``encode → pack_container``):
 
 * **host** (production today): pull the padded int16 RLE pairs down the
-  ~20-40 MB/s device→host link, then single-pass C++ histogram + pack
+  device→host link, then single-pass C++ histogram + pack
   (``native.rle_symbol_hist`` / ``huff_pack_pairs``).
 * **device**: keep symbols in HBM, histogram via sort + bin-edge
   searchsorted, build the (tiny) canonical codebook on host, pack with
@@ -73,7 +72,7 @@ def run_entropy_ab(
     # This A/B deliberately measures the int32/int16 PAIR layout (the
     # decision artifact predates pack16 and stays comparable to it);
     # disable the u16 transfer layouts before the first trace.
-    pipe._pack16 = pipe._sparse16 = pipe._megakernel = False
+    pipe._pack16 = pipe._sparse16 = False
     slim = pipe._forward_rle(jnp.asarray(img))
     jax.block_until_ready(slim)
 

@@ -1,7 +1,8 @@
-"""Golden-image fidelity + throughput suite (VERDICT r3 item 5).
+"""Golden-image fidelity + throughput suite.
 
 Runs the production pipeline over the reference's four committed images
-(``/root/reference/Assets/Images``, the inputs its parallel ``main``
+(``Assets/Images`` of the reference checkout named by
+``LZ4JPEG_REFERENCE_ROOT``, the inputs its parallel ``main``
 consumed — ``Algorithms/parallel/JPEG/JPEG.c:1257``), commits MSE/PSNR,
 compressed sizes, and fenced encode timings, and re-verifies the
 stage-PNG provenance checks of ``tests/test_golden_images.py`` so the
@@ -20,8 +21,11 @@ from typing import Dict, Optional
 
 import numpy as np
 
-ASSETS = "/root/reference/Assets/Images"
-STAGE_DIR = "/root/reference/Output-Input/Images"
+# The reference checkout holding its committed images (not part of this
+# repository).
+_ROOT = os.environ.get("LZ4JPEG_REFERENCE_ROOT", "")
+ASSETS = os.path.join(_ROOT, "Assets/Images")
+STAGE_DIR = os.path.join(_ROOT, "Output-Input/Images")
 IMAGES = ("og.png", "jellyfish.png", "switzerland-uot.png", "Solid_red.png")
 
 

@@ -1,12 +1,12 @@
 """Scaling-efficiency sweep over mesh sizes.
 
 The reference's scaling story is a speedup table of thread-per-block wall
-times (BASELINE.md: 4.7×–18.7× at 64–2048 px).  The TPU equivalent runs the
-*same sharded program* over meshes of 1, 2, 4, … devices and reports
+times (BASELINE.md: 4.7×–18.7× at 64–2048 px).  The device equivalent runs
+the *same sharded program* over meshes of 1, 2, 4, … devices and reports
 throughput + parallel efficiency.  On a CPU host with
 ``--xla_force_host_platform_device_count`` the numbers validate the harness
-and the sharding (not real silicon); on a pod slice they measure true
-ICI/DCN scaling.
+and the sharding, not a device; on several GPUs they measure the
+interconnect's scaling.
 """
 
 from __future__ import annotations

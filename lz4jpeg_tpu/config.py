@@ -33,19 +33,9 @@ class LZ4Config:
     # encode, LZ4.c:24,683, and threads it to the frame/block/sequence
     # printers at :220-287).  None disables logging.
     log_path: Optional[str] = None
-    # Device match finder for fast mode: "fused" is the single-kernel
-    # Pallas sort→candidates→replay matcher (ops/pallas_match.py, TPU
-    # only — other backends silently use "sort"); "sort" is the
-    # two-``lax.sort`` formulation (ops/lz4_fast.py), portable.
-    matcher: str = "fused"
-    # Anchor stride for the fused matcher: matches may start only every
-    # N-th byte (LZ4's "acceleration" idea).  1 = full quality; 2/4 trade
-    # measured ratio for large throughput gains (results/lz4_device.json).
-    match_stride: int = 1
-    # Suffix words carried through the matcher's lcp verification.  The
-    # round-5 default 4 gives the best committed device ratio (75,467 B
-    # on Metamorphosis — beats the host C++ encoder) at 388 MB/s fused;
-    # 2 is the speed knob (+34% throughput, lcp2-grade ratio 76,305 B).
+    # Suffix words carried through the device matcher's lcp verification
+    # (ops/lz4_fast.py): 4 keeps the full-quality suffix, 1 and 2 carry
+    # less per sort and so trade compression ratio for speed.
     match_lcp_words: int = 4
 
     def __post_init__(self):
@@ -54,12 +44,6 @@ class LZ4Config:
             raise ValueError("block length cannot have the value 500")
         if self.mode not in ("parity", "fast"):
             raise ValueError(f"unknown LZ4 mode: {self.mode!r}")
-        if self.matcher not in ("sort", "fused"):
-            raise ValueError(f"unknown matcher: {self.matcher!r}")
-        if self.match_stride not in (1, 2, 4):
-            raise ValueError(
-                f"match_stride must be 1, 2 or 4: {self.match_stride}"
-            )
         if self.match_lcp_words not in (1, 2, 4):
             raise ValueError(
                 f"match_lcp_words must be 1, 2 or 4: {self.match_lcp_words}"
@@ -77,11 +61,11 @@ class JPEGConfig:
 
     mcu_size: int = 8
     # "exact": float64 DCT matching the C double pipeline (CPU-verifiable).
-    # "fast": float32 matmul DCT on the MXU.
+    # "fast": float32 matmul DCT on the accelerator.
     precision: str = "fast"
     # Entropy stage: "per_block" rebuilds a Huffman tree per block per channel
     # like the reference (JPEG.c:1035-1097); "shared" builds one canonical
-    # codebook per channel from global statistics and vector-encodes on TPU.
+    # codebook per channel from global statistics and vector-encodes it.
     entropy: str = "shared"
     # None = the reference's fixed tables (JPEG.c:12-27), required for
     # parity.  1–100 scales them with the standard libjpeg quality curve
@@ -109,7 +93,7 @@ class MeshConfig:
 
     The reference's only parallelism is one Win32 thread per block/MCU on a
     shared-memory machine (``Algorithms/parallel/LZ4/LZ4.c:742``); here the
-    block/MCU axis is sharded over a (hosts × chips) mesh and compressed
+    block/MCU axis is sharded over a (hosts × devices) mesh and compressed
     payloads are gathered back in original order by index.
     """
 

@@ -16,7 +16,7 @@ framework-native replacement with none of those limits:
                [matchlen ext: (255)* final<255  if matchlen-4>=15]
     FinalSequence := literals-only token (match nibble 0), no offset field.
 
-TPU-first design notes (vs the reference, SURVEY.md §2.3):
+Design notes (vs the reference, SURVEY.md §2.3):
 
 * the per-block compressed sizes live **up front**, so decode framing is a
   single prefix sum instead of the reference's serial walk over block
@@ -136,7 +136,7 @@ def _emit_final(out: bytearray, literals: bytes) -> None:
 def emit_block_from_parse(
     block: bytes, is_match, emit_len, emit_dist
 ) -> bytes:
-    """LZ4T payload from parse arrays (the TPU matcher's output shape).
+    """LZ4T payload from parse arrays (the device matcher's output shape).
 
     ``is_match[k]`` marks a sequence starting at ``k`` with total match
     length ``emit_len[k]`` (≥4) at distance ``emit_dist[k]``; the gaps are

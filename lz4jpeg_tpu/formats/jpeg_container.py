@@ -128,7 +128,7 @@ def unpack_container(data: bytes) -> "JPEGEncoded":
         raise JPEGContainerError("trailing bytes after container")
 
     # Decode the streams back to RLE.  Prefer the sparse-delta combined
-    # layout (the round-5 interchange: h2d-ready for the folded-einsum
+    # layout (the interchange: h2d-ready for the folded-einsum
     # device inverse, one buffer, same bytes as packed16); a stream the
     # strict sparse walker rejects falls back to the packed-u16 pairs,
     # then to the int32 quirk-compatible path, keeping every channel in
@@ -137,9 +137,7 @@ def unpack_container(data: bytes) -> "JPEGEncoded":
     sparse16 = native is not None
     combined = None
     if sparse16:
-        from lz4jpeg_tpu.ops.pallas_fwd import (
-            CHANNEL_SLICES, COMBINED_LANES,
-        )
+        from lz4jpeg_tpu.ops.rle import CHANNEL_SLICES, COMBINED_LANES
 
         slices = CHANNEL_SLICES
         combined = np.zeros((num_blocks, COMBINED_LANES), np.uint16)

@@ -3,8 +3,8 @@
 Provides host-grade implementations of the serial/host-bound parts of the
 framework (the L0/L1 layers the reference wrote in C, SURVEY.md §1): the
 LZ4 fast-mode encoder (hash-chain matcher over 64 KiB blocks), the frame
-serializer/deserializer, and the LZ77 copy-back — keeping the TPU for the
-batched compute path.
+serializer/deserializer, and the LZ77 copy-back — keeping the accelerator
+for the batched compute path.
 
 Built with ``make -C lz4jpeg_tpu/native`` (plain g++, no dependencies).
 ``native_backend()`` raises a clear error if the shared library has not
@@ -164,7 +164,7 @@ class NativeBackend:
     def emit_block(
         self, data: bytes, is_match, emit_len, emit_dist
     ) -> bytes:
-        """LZ4T payload from TPU parse arrays (numpy uint8/int32/int32)."""
+        """LZ4T payload from device parse arrays (numpy uint8/int32/int32)."""
         import numpy as np
 
         is_match = np.ascontiguousarray(is_match, np.uint8)
@@ -252,7 +252,7 @@ class NativeBackend:
 
     def build_copy_program(
         self, frame: bytes, block_count: int, block_size: int,
-        depth_cap: int = 4,
+        depth_cap: int = 1,
     ):
         """LZ4T frame → device-decode copy program.
 
@@ -461,7 +461,7 @@ class NativeBackend:
         """Symbol histogram over one channel of a sparse-delta buffer
         (ops/rle.py::rle_encode_sparse16), walked IN PLACE: ``sparse`` is
         the (N, stride) uint16 combined array (stride = 128 for the
-        megakernel layout, or == row_len for a single channel) and
+        combined layout, or == row_len for a single channel) and
         ``col_off``/``row_len`` select the channel lanes.  Also returns
         the per-block symbol lengths (2·runs) — the device never ships a
         lengths side channel in this layout."""

@@ -1,11 +1,8 @@
-"""Batched TPU kernels for the codec pipelines.
+"""Batched device ops for the codec pipelines.
 
 Each op is an XLA-fused jnp formulation verified coefficient-exactly
-against ``oracle/``.  Hand-written Pallas kernels for the two hot ops
-(fused MCU matmul, RLE compaction) were built and A/B'd on the chip —
-XLA's einsum pipelining and bitonic sort won both (2× and 3×; committed
-``results/pallas_ab.json``), so the XLA formulations are the production
-path and the Pallas candidates live in ``profiles/`` for reproducibility.
+against ``oracle/``.  The one hand-written kernel is the fused JPEG
+forward (``pallas_fwd.py``), tested against the XLA chain it replaces.
 """
 
 from lz4jpeg_tpu.ops.color import (  # noqa: F401

@@ -62,9 +62,7 @@ def split_mcus(y: jnp.ndarray, cr_sub: jnp.ndarray, cb_sub: jnp.ndarray):
         if plane.shape != (bh * th, bw * tw):
             # Ragged edge: zero-pad like divide_image (JPEG.c:512-523).
             # Shapes are static under jit, so evenly divisible images
-            # (every power-of-two bench size) skip this copy entirely —
-            # measured ~8% of the tiling relayout at 2048²
-            # (profiles/profile_colorsplit2.py).
+            # (every power-of-two bench size) skip this copy entirely.
             padded = jnp.zeros((bh * th, bw * tw), dtype=plane.dtype)
             plane = padded.at[: plane.shape[0], : plane.shape[1]].set(plane)
         return (
@@ -102,9 +100,7 @@ def ycbcr_planes_to_rgb(
     JPEG.c:598-604) — identical arithmetic to ``ycbcr_to_rgb_mcus`` but
     fed reconstructed PLANES, so there is no ``merge_mcus`` tile
     relayout anywhere in the inverse chain (the decode mirror of the
-    round-3 plane-view forward; the tile path's merge measured 8.6 GB/s
-    vs the 386 GB/s stream ceiling, ``results/roofline_jpeg_inverse
-    .json``)."""
+    plane-view forward)."""
     y = y_plane.astype(jnp.int32)
     if chroma_upsampled:
         # Full-width chroma planes (the upsample was folded into the

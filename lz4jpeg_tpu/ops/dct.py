@@ -1,14 +1,14 @@
-"""Batched 2-D DCT-II / IDCT as MXU matmuls.
+"""Batched 2-D DCT-II / IDCT as matmuls.
 
 The reference computes each coefficient with a quadruple loop and on-the-fly
 ``cos()`` in double — O(N²·M²) transcendentals per block
-(``discrete_cosine_transform``, JPEG.c:451-494).  The TPU-native formulation
+(``discrete_cosine_transform``, JPEG.c:451-494).  The batched formulation
 precomputes the orthonormal basis once and evaluates the whole batch as two
 matrix products per block,
 
     C = (α_h α_wᵀ) ⊙ (A_h · (X − 128) · A_wᵀ),
 
-batched over all MCUs with a single einsum → two MXU matmuls for the entire
+batched over all MCUs with a single einsum → two matmuls for the entire
 image.  The basis is built in float64 and cast, so the fast float32 path and
 the exact float64 path share code.
 """
@@ -34,8 +34,8 @@ def dct2_batched(values: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     """(N, H, W) uint8 pixel tiles → (N, H, W) DCT coefficients.
 
     Level-shifts by −128 first (JPEG.c:465-468), then applies the separable
-    orthonormal transform.  ``preferred_element_type`` keeps the MXU
-    accumulating in float32 even if inputs are cast lower.
+    orthonormal transform.  ``preferred_element_type`` keeps the
+    product accumulating in float32 even if inputs are cast lower.
     """
     n, h, w = values.shape
     ah, alpha_h = dct_basis(h)
@@ -43,9 +43,8 @@ def dct2_batched(values: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     x = values.astype(dtype) - 128.0
     ah = jnp.asarray(ah, dtype)
     aw = jnp.asarray(aw, dtype)
-    # "highest": TPU f32 matmuls otherwise run bf16 multiplies (measured
-    # 1426/262144 wrong quantized coefficients on-chip vs 3 at highest —
-    # profiles/check_matmul_precision.py).
+    # "highest": IEEE fp32 products.  A lower default (TF32 on the GPU's
+    # tensor cores) flips quantized coefficients across trunc boundaries.
     coeff = jnp.einsum(
         "ux,nxy,vy->nuv", ah, x, aw, preferred_element_type=dtype,
         precision="highest",

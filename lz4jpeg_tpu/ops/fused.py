@@ -9,16 +9,14 @@ the final truncation, the *entire* chain folds into a single matrix:
     with (u,v) = zigzag⁻¹(k)
     out_zz[k]   = trunc( X_flat @ Mᵀ  -  128 * Σ_xy M[k] )
 
-i.e. one (N, 64) × (64, 64) matmul + a per-column offset + truncation — the
-MXU's favorite shape, replacing DCT + quantize + zigzag entirely.  The
+i.e. one (N, 64) × (64, 64) matmul + a per-column offset + truncation,
+replacing DCT + quantize + zigzag entirely.  The
 inverse chain (reverse zigzag → dequantize → IDCT → +128 → round/clamp)
 folds the same way.
 
-This module holds the basis construction and the jnp implementation — the
-production path on every backend: a hand-written Pallas kernel over the
-same basis (``profiles/pallas_mcu.py``) measured 2× slower than XLA's
-pipelining of this einsum on TPU v5e (``results/pallas_ab.json``).
-Parity: the fused f32 path agrees with the staged f64 exact
+This module holds the basis construction and the jnp implementation, which
+every path uses (the fused forward kernel, ``ops/pallas_fwd.py``, contracts
+against the same bases).  Parity: the fused f32 path agrees with the staged f64 exact
 path *after quantization* on noise inputs (tested); the staged path
 remains the oracle-exact reference.
 """
@@ -103,11 +101,10 @@ def fused_forward_jnp(
     m, off = forward_basis(width, height, _table_key(table))
     n = tiles.shape[0]
     x = tiles.reshape(n, height * width).astype(dtype)
-    # "highest": TPU f32 matmuls default to bf16 multiplies, which flips
-    # ~0.5% of quantized coefficients across trunc boundaries on-chip
-    # (profiles/check_matmul_precision.py: 1426/262144 wrong at default,
-    # 3 at highest — the residue is f32-vs-f64 rounding at boundaries,
-    # inherent to the fast path; exact mode stays the oracle).
+    # "highest": IEEE fp32 products.  A reduced-precision default (TF32
+    # on the GPU's tensor cores) flips quantized coefficients across trunc
+    # boundaries; the residue at highest is f32-vs-f64 rounding at
+    # boundaries, inherent to the fast path (exact mode stays the oracle).
     ratio = jnp.matmul(
         x, jnp.asarray(m.T, dtype), precision="highest"
     ) - jnp.asarray(off, dtype)
@@ -124,14 +121,11 @@ def fused_forward_plane_jnp(
     (bh, 8·width, bw) quantized zigzag coefficients, WITHOUT the 8×8 tile
     relayout (``split_mcus``) — the einsum contracts straight over the
     plane's (row-in-block, col-in-block) view, and the output keeps block
-    positions along the middle axis: exactly the transposed layout the
-    sublane-butterfly RLE kernel consumes
-    (``ops/pallas_rle.py::rle_encode_packed16_pallas_kt``).
+    positions along the middle axis (the KT layout the plane-view inverse
+    takes; tests use the pair as a reference).
 
-    Bit-identical to ``fused_forward_jnp`` of the relayouted tiles
-    (verified on-chip at 256²/512² across all channels, 0/655k mismatched
-    coefficients — the r2 ``B2`` formulation, now with a consumer for its
-    deferred transpose).  Requires H % 8 == 0 and Wp % width == 0.
+    Same contraction as ``fused_forward_jnp`` of the relayouted tiles,
+    in another association order.  Requires H % 8 == 0 and Wp % width == 0.
     """
     m, off = forward_basis(width, 8, _table_key(table))
     h, wp = plane.shape
@@ -158,17 +152,14 @@ def fused_inverse_plane_jnp(
     contiguous merges.
 
     Same contraction, precision="highest", same C-round semantics as
-    ``fused_inverse_jnp`` + ``merge_mcus``; on TPU the einsum's strided
-    output layout makes XLA accumulate the 64-length dots in a different
-    association, which flips ~1 in 10⁵ plane values by ±1 at the
-    round-half boundary (measured at 512²: 31/4.2M luma pixels; CPU
-    lowering is bitwise identical).  After the color combine the RGB
+    ``fused_inverse_jnp`` + ``merge_mcus``; an accelerator may accumulate
+    the 64-length dots of the strided einsum in another association,
+    which can flip a plane value by ±1 at the round-half boundary (the
+    CPU lowering is bitwise identical).  After the color combine the RGB
     envelope vs the tile path is ±3 (G sums three independently
-    truncated terms) on ~2e-4 of pixels.  The fast path's contract is
-    "within a couple of levels of exact f64"
-    (tests/test_jpeg_pipeline.py), which both formulations satisfy;
-    speed is identical to the tile matmul (10.4 vs 10.3 ms at 268 MPix)
-    — the win is deleting ``merge_mcus``.
+    truncated terms).  The fast path's contract is "within a couple of
+    levels of exact f64" (tests/test_jpeg_pipeline.py), which both
+    formulations satisfy; the plane form deletes ``merge_mcus``.
     """
     minv = inverse_basis(width, 8, _table_key(table))
     bh, hw, bw = zz_kt.shape
@@ -176,13 +167,11 @@ def fused_inverse_plane_jnp(
     out_w = width
     if upsample_cols:
         # Fold the 4:2:2 horizontal upsample INTO the basis: duplicating
-        # each Minv column makes the MXU emit both output pixels of a
+        # each Minv column makes the matmul emit both output pixels of a
         # chroma sample directly — bit-identical to round-then-repeat
         # (the dot is the same; round/clip commute with duplication) and
-        # it deletes the (H, W/2)→(H, W) lane-interleave relayout that
-        # made the color merge the decode's limiting stage (XLA's
-        # ``jnp.repeat`` ran at ~40 GB/s and pessimized the surrounding
-        # fusion: 106 → 55.6 ms measured end to end at 2048²×64).
+        # it deletes the (H, W/2)→(H, W) interleave relayout in the color
+        # merge.
         mi_np = np.repeat(mi_np, 2, axis=2)
         out_w = 2 * width
     mi = jnp.asarray(mi_np, dtype)
@@ -208,9 +197,7 @@ def inverse_suffix_basis(width: int, height: int, table_key: bytes):
 
     i.e. one matmul straight from the deltas, with the suffix sums
     precomputed here in f64 (a column-reversed cumsum of
-    ``inverse_basis``).  The decode chain's expansion stage disappears —
-    this is the round-5 answer to the inverse roofline's limiting stage
-    (``results/roofline_jpeg_inverse.json::stages.rle_expand``).
+    ``inverse_basis``).  The decode chain's expansion stage disappears.
     Reference inverse chain: JPEG.c:399-448, :811-842.
     """
     minv = inverse_basis(width, height, table_key)
@@ -226,9 +213,8 @@ def fused_inverse_plane_sparse_jnp(
     (8·bh, width·bw or 2·width·bw) uint8 channel plane.
 
     Identical structure to ``fused_inverse_plane_jnp`` but contracting
-    with ``inverse_suffix_basis`` — the RLE expansion rides the same MXU
-    pass (measured 2.03× the expand-kernel + einsum chain at 134 MPix,
-    ``results/pallas_ab.json::sparse16_round5``).  Precision contract:
+    with ``inverse_suffix_basis`` — the RLE expansion rides the same
+    matmul.  Precision contract:
     the fold reassociates the k-sum (suffix sums are rounded to f32 once
     instead of per-term), which flips ~1e-4 of pixels by ±1 at the
     round-half boundary vs the two-step path — the same envelope as the

@@ -6,7 +6,7 @@ Two modes mirror SURVEY.md §7 step 5:
   a tree per block per channel with the reference's exact heap quirks
   (JPEG.c:1035-1097) and is used for bit-level parity checks.
 
-* **shared mode** (this module) is the TPU-native design: one *canonical*
+* **shared mode** (this module) is the batched design: one *canonical*
   codebook per channel built from global symbol statistics, broadcast to all
   devices, with encoding as a table gather + bit-pack.  Canonical codes are
   fully determined by (length, symbol) order, which makes the codebook
@@ -188,13 +188,10 @@ def pack_symbols_device(
     Jit-compatible variant of ``pack_symbols``: every output *bit* finds its
     source symbol with one ``searchsorted`` over the exclusive bit-offset
     prefix sum, extracts its bit of the codeword, and the bit matrix folds
-    to bytes with a (·,8)×(8,) dot.  NOTE: measured on the real chip
-    (``bench/entropy_ab.py`` → committed ``results/entropy_ab.json``), the
-    per-bit searchsorted serializes: ~1.1 s for the 1024² luma stream vs
-    ~14 ms for the native C++ packer even after paying the device→host
-    pull of the pairs — so the production entropy stage is the native
-    single-pass packer (``native.huff_pack_pairs``) and this op serves
-    device-resident pipelines that need occasional in-graph packing.
+    to bytes with a (·,8)×(8,) dot.  The production entropy stage is the
+    native single-pass packer (``native.huff_pack_pairs``); this op serves
+    device-resident pipelines that need occasional in-graph packing, and
+    ``bench/entropy_ab.py`` times the two against each other.
 
     ``pad_bits`` is the static output capacity in bits (a multiple of 8);
     jit recompiles only per capacity bucket, not per input.  Returns

@@ -1,9 +1,9 @@
-"""LZ4 decode on TPU: vectorized literal placement + log-depth match copy.
+"""LZ4 decode on the device: vectorized literal placement + log-depth match copy.
 
 The reference decodes serially: literals appended, then each match byte
 copied one at a time against the global output buffer
 (``interpret_sequence``, LZ4.c:937-982) — an inherently sequential chain
-when matches overlap (offset < length).  The TPU formulation turns the
+when matches overlap (offset < length).  The device formulation turns the
 whole reconstruction into data-parallel passes (SURVEY.md §7 step 4):
 
 1. host framing scan (cheap, linear) produces a *copy program*: for every

@@ -15,10 +15,11 @@ block-parallel reconstruction on the accelerator:
    literal byte or the intra-block index it copies from.  Blocks are
    independent by construction (matches never cross an LZ4T block), so the
    program rows are too.
-2. **Match resolution (device, batched).**  Match chains resolve by
-   pointer doubling — ``root[i] ← root[root[i]]`` per block row — so a
-   length-L offset-1 chain (the worst case) finishes in ⌈log₂ L⌉ batched
-   gathers instead of the reference's byte-serial copy loop
+   The builder walks left to right and keeps every position's root, so
+   it hands the device a fully rooted program: each match position
+   names the literal it ultimately copies.
+2. **Match resolution (device, batched).**  One gather per block row,
+   ``lit[root[i]]``, replaces the reference's byte-serial copy loop
    (``interpret_sequence``, LZ4.c:937-982).  All blocks resolve at once,
    and the block axis shards over a device mesh (``parallel/lz4.py::
    sharded_resolve_blocks``) exactly like the encode side.
@@ -44,16 +45,8 @@ from lz4jpeg_tpu.formats.fast_frame import (
 )
 
 
-# Host pre-roots chains deeper than this during the program build, so the
-# device runs at most ceil(log2(cap)) doubling steps.  Every doubling step
-# is a data-dependent gather — the slowest primitive on this stack
-# (~70 Melem/s measured, results/lz4t_decode_device.json) — so small caps
-# win; 4 keeps genuine on-device chain resolution at 2 steps.
-DEVICE_DEPTH_CAP = 4
-
-
 def build_copy_program_fast(
-    frame: bytes, depth_cap: int = DEVICE_DEPTH_CAP
+    frame: bytes, depth_cap: int = 1
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
     """LZ4T frame → ``(lit (B, P) u8, src (B, P) i32, raw_sizes (B,), P,
     max_depth)``.
@@ -63,9 +56,10 @@ def build_copy_program_fast(
     collapsed to one hop into the source period, chains deeper than
     ``depth_cap`` are pre-rooted (the builder's left-to-right walk keeps
     the root array for free), and ``max_depth`` is the longest remaining
-    chain — the device then needs only ``ceil(log2(max_depth))`` doubling
-    steps.  Native single-pass parse when built, pure Python otherwise
-    (same output).
+    chain.  The default ``depth_cap=1`` is the fully rooted program
+    ``resolve_blocks`` takes; deeper caps exist for tests that check it
+    against pointer doubling.  Native single-pass parse when built, pure
+    Python otherwise (same output).
     """
     if len(frame) < 20:
         raise FastFormatError("frame too short")
@@ -135,7 +129,7 @@ def build_copy_program_fast(
 
 def _parse_payload(
     payload: bytes, lit_row: np.ndarray, src_row: np.ndarray, expected: int,
-    depth_cap: int = DEVICE_DEPTH_CAP,
+    depth_cap: int = 1,
 ) -> int:
     """One block's payload → its copy-program row (Python spec path).
     Returns the block's maximum (post-cap) chain depth."""
@@ -197,148 +191,33 @@ def _parse_payload(
     return int(depth.max(initial=0))
 
 
-def depth_to_steps(max_depth: int) -> int:
-    """Doubling steps needed to root chains of the given depth
-    (2**steps ≥ depth; depth ≤ 1 is already rooted by the initial hop)."""
-    return max(0, max_depth - 1).bit_length()
-
-
-@functools.partial(__import__("jax").jit, static_argnames=("steps",))
-def resolve_blocks(lit, src, steps: int):
-    """Batched per-block pointer doubling: (B, P) copy program → bytes.
-
-    After k doublings every chain of depth ≤ 2^k is rooted; the program
-    builder collapses periodic runs and reports the true ``max_depth``
-    (single digits on real data), so ``steps = depth_to_steps(max_depth)``
-    — not the block-size worst case.  Literals root at themselves (the
-    doubling fixpoint).
-    """
-    import jax
+@functools.partial(__import__("jax").jit)
+def resolve_blocks(lit, src):
+    """Batched copy resolve of a fully rooted (B, P) copy program → bytes:
+    literal positions (``src == -1``) read themselves, match positions
+    read the literal they root at, all in one gather per row."""
     import jax.numpy as jnp
 
     p = src.shape[1]
     idx = jnp.arange(p, dtype=src.dtype)[None, :]
-    root = jnp.where(src < 0, idx, src)
-    root = jax.lax.fori_loop(
-        0, steps, lambda _, r: jnp.take_along_axis(r, r, axis=1), root
-    )
-    return jnp.take_along_axis(lit, root, axis=1)
-
-
-# MXU one-hot resolve parameters (round 5): r = CHUNK*hi + lo; one
-# transposed one-hot matmul per 128-output tile gathers each output's
-# 128-byte chunk row, a sublane-select extracts the byte.
-_MXU_CHUNK = 128
-_MXU_ROWS = 32  # 128-output rows per grid step
-
-
-def _mxu_resolve_kernel(root_ref, lit2t_ref, out_ref, *, c_chunks: int):
-    import jax
-    import jax.numpy as jnp
-
-    r2 = root_ref[0]  # (R, 128) i32 — outputs dense on lanes
-    hi = r2 >> 7
-    lo = r2 & 127
-    sio = jax.lax.broadcasted_iota(jnp.int32, (c_chunks, 128), 0)
-    bio = jax.lax.broadcasted_iota(jnp.int32, (_MXU_CHUNK, 128), 0)
-    outs = []
-    for r in range(r2.shape[0]):
-        # One-hot over the chunk id, TRANSPOSED (chunks on sublanes) so
-        # the build is a sublane-iota compare against a broadcast row —
-        # the sublane-oriented variants paid 128x narrow-DMA padding
-        # (profiles/probe_lz4t_mxu_gather*.py).
-        ht = (sio == hi[r : r + 1, :]).astype(jnp.bfloat16)
-        rows_t = jax.lax.dot_general(
-            lit2t_ref[0], ht, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (128 bytes-in-chunk, 128 outputs) — exact: one 1 per column
-        sel = bio == lo[r : r + 1, :]
-        outs.append(jnp.sum(
-            jnp.where(sel, rows_t.astype(jnp.int32), 0),
-            axis=0, keepdims=True,
-        ))
-    out_ref[0] = jnp.concatenate(outs, axis=0)
-
-
-@functools.partial(
-    __import__("jax").jit, static_argnames=("interpret",)
-)
-def resolve_blocks_mxu(lit, root, interpret: bool = False):
-    """(B, P) u8 literals + (B, P) FULLY-ROOTED source indices → bytes,
-    as a square-decomposed one-hot MXU gather (VERDICT r4 item 2's
-    formulation), superseding the round-4 sort-join bound.  Cost is
-    invariant at 2·P² MACs per P-byte block (every output tile's
-    contraction must span the whole block; median root distance is
-    23 Ki of the 64 Ki block, so no band helps) — that invariant IS the
-    asymptote, and at serving batches the kernel reaches it:
-    **1.04 GB/s at 128 MB** (881 MB/s at 64 MB; small batches are
-    dispatch-starved — 457/152/40 MB/s at 16/4/1 MB), 37× the
-    pointer-doubling gathers and the charter's GB/s decode bar met
-    on-device (results/lz4t_decode_device.json::mxu_resolve_round5).
-    Requires P % (128·_MXU_ROWS) == 0; ``root`` must satisfy
-    root[i] == i at literal positions (depth_cap=1 programs).
-    Reference byte-serial loop this replaces: LZ4.c:937-982."""
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    import jax.numpy as jnp
-
-    b, p = lit.shape
-    c_chunks = p // _MXU_CHUNK
-    g = p // (128 * _MXU_ROWS)
-    root3 = root.reshape(b * g, _MXU_ROWS, 128)
-    lit2t = jnp.transpose(
-        lit.reshape(b, c_chunks, _MXU_CHUNK), (0, 2, 1)
-    ).astype(jnp.bfloat16)
-    out = pl.pallas_call(
-        functools.partial(_mxu_resolve_kernel, c_chunks=c_chunks),
-        grid=(b * g,),
-        in_specs=[
-            pl.BlockSpec((1, _MXU_ROWS, 128), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _MXU_CHUNK, c_chunks),
-                         lambda i, g=g: (i // g, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, _MXU_ROWS, 128), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b * g, _MXU_ROWS, 128), jnp.int32),
-        interpret=interpret,
-    )(root3, lit2t)
-    return out.reshape(b, p).astype(jnp.uint8)
+    return jnp.take_along_axis(lit, jnp.where(src < 0, idx, src), axis=1)
 
 
 def decode_fast_device(frame: bytes) -> bytes:
-    """Full LZ4T decode with device match resolution (single device).
-
-    On TPU with MXU-compatible block sizes the resolve runs as the
-    one-hot matmul gather (``resolve_blocks_mxu``, host pre-roots all
-    chains for free during its parse walk); other shapes/backends keep
-    the pointer-doubling path."""
+    """Full LZ4T decode with device match resolution (single device):
+    the host builds the fully rooted copy program, the device resolves
+    it with ``resolve_blocks``."""
     import jax
     import jax.numpy as jnp
 
     from lz4jpeg_tpu.formats.fast_frame import verify_frame_checksum
 
-    use_mxu = jax.default_backend() == "tpu"
-    lit, src, raw_sizes, p, max_depth = build_copy_program_fast(
-        frame, depth_cap=1 if use_mxu else DEVICE_DEPTH_CAP
-    )
+    lit, src, raw_sizes, _, _ = build_copy_program_fast(frame)
     if lit.shape[0] == 0:
         return b""
-    if use_mxu and p % (128 * _MXU_ROWS) == 0:
-        idx = np.arange(p, dtype=np.int32)[None, :]
-        root = np.where(src < 0, idx, src).astype(np.int32)
-        out = np.asarray(jax.device_get(
-            resolve_blocks_mxu(jnp.asarray(lit), jnp.asarray(root))
-        ))
-    else:
-        steps = depth_to_steps(max_depth)
-        out = np.asarray(
-            jax.device_get(
-                resolve_blocks(jnp.asarray(lit), jnp.asarray(src), steps)
-            )
-        )
+    out = np.asarray(
+        jax.device_get(resolve_blocks(jnp.asarray(lit), jnp.asarray(src)))
+    )
     decoded = _trim_rows(out, raw_sizes)
     verify_frame_checksum(frame, decoded)
     return decoded

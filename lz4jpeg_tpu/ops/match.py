@@ -1,7 +1,7 @@
-"""LZ4 match finding as a batched, vectorized TPU op.
+"""LZ4 match finding as a batched, vectorized device op.
 
 The reference's hot loop is a brute-force O(n²·L) scan per position
-(``find_longest_match``, LZ4.c:290-323).  The TPU formulation computes the
+(``find_longest_match``, LZ4.c:290-323).  The batched formulation computes the
 *entire* match-length table of a block at once, for all blocks in parallel:
 
 1. ``EQ[d, k] = x[k] == x[k-d]`` — a (P, P) byte-compare matrix per block

@@ -1,39 +1,33 @@
-"""The forward megakernel: color + DCT + sparse-RLE in ONE Pallas pass.
+"""The forward kernel: color + DCT + sparse-delta RLE in one Pallas pass.
 
-The round-4 roofline located the forward chain's headroom in XLA's
-inter-stage HBM materialization (~19 B/px of stage traffic vs ~5 B/px
-algorithmic, ``results/roofline_jpeg_forward.json``).  This kernel runs
-the whole per-block chain — YCbCr color transform, DCT+quantize+zigzag
-as one basis matmul per channel, and the sparse-delta RLE epilogue
-(``ops/rle.py::rle_encode_sparse16``) — inside VMEM, reading the RGB
-block layout once (u8) and writing the entropy-ready sparse streams
-once (u16).  Reference chain collapsed: the per-stage batch loops of
-``Algorithms/sequential/JPEG/JPEG.c:1136-1421``.
+The XLA forward chain (``models/jpeg.py::_forward_rle_impl``) writes the
+YCbCr planes, relayouts them into 8×8 tiles, materialises float32 matmul
+operands and outputs, and only then runs the sparse-delta epilogue
+(``ops/rle.py::rle_encode_sparse16``).  Fused, the chain needs about
+7 bytes per pixel of device-memory traffic: the uint8 RGB read once and
+the (N, 128) uint16 combined stream written once.  This kernel is that
+fusion, written for the Triton route of Pallas (``backend="triton"``):
 
-Design notes (measured in profiles/probe_megakernel*.py, probe_pallas_
-copy_ceiling.py, committed in results/pallas_ab.json::round5):
+* one program handles ``TILE_BLOCKS`` consecutive MCUs in block-row-major
+  order and gathers their pixels straight from the interleaved (H, W, 3)
+  image — no relayout pass exists anywhere;
+* the 4:2:2 subsample is a choice of gather positions: chroma reads
+  only the odd full-resolution columns (``chroma_subsample_422``), so
+  the chroma bases stay (32, 32);
+* DCT + quantize + zigzag is one float32 product per channel against the
+  fused basis of ``ops/fused.py`` at ``Precision.HIGHEST`` (IEEE fp32,
+  not TF32), followed by the same tie-snapping truncation;
+* the sparse-delta epilogue needs each coefficient's predecessor in
+  zigzag order, and Triton has no register shift: the program stores its
+  biased coefficients to its own output rows, waits at a block barrier,
+  reads them back one lane over, waits again, and overwrites the rows
+  with the deltas.  The round trip stays in the SM's cache; a one-hot
+  shift product instead (tensor cores beside the fp32 FMA products)
+  measured an order of magnitude slower on an H200.
 
-* Input is the "kt" block layout (position-within-8×8-tile on sublanes,
-  block index on lanes), produced by one XLA transpose
-  (``rgb_to_kt``, ~3.9 ms / 134 MPix) — lane-split reshapes do not
-  lower inside Mosaic, so the relayout stays outside.
-* The 4:2:2 odd-column subsample is FOLDED into a (32, 64) chroma
-  basis (chroma block position (r, c') reads full-resolution tile
-  column 2c'+1), so no subsample op exists anywhere.
-* All three channels concatenate into ONE (C, 128) int16 output tile
-  (64 luma + 32 Cr + 32 Cb lanes per block row): per-channel (C, 64)/
-  (C, 32) i16 outputs waste half to three quarters of every 128-lane
-  write tile (measured +3.4 ms); the combined layout writes full lanes
-  with one transpose and one DMA stream.
-* Run-count side channels are NOT emitted: an (N, 1) output pays ~8 ms
-  of lane-padding write amplification.  Lengths come from the host
-  entropy pass (which walks the stream anyway) or a cheap XLA reduce.
-* In-kernel ``dot_general`` with precision=HIGHEST is bit-identical to
-  the XLA plane einsum chain (0/268M coefficient mismatches measured).
-* Pallas VMEM copies cap at ~155 GB/s on this chip (vs ~300 GB/s XLA
-  streams), which bounds this kernel at ~10.3 ms / 134 MPix — still
-  2.4× the XLA plane-einsum chain (24.9 ms), because the win is
-  formulation (one pass, no materialization), not raw stream rate.
+``models/jpeg.py::_forward_rle_impl`` calls the kernel when lowering for
+a CUDA device with an 8-aligned shape; every other case runs the XLA
+chain the kernel is tested against (``PERF.md`` has both times).
 """
 
 from __future__ import annotations
@@ -44,171 +38,150 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from lz4jpeg_tpu.ops.color import _snap_trunc as _snap_trunc  # shared helper
-from lz4jpeg_tpu.ops.fused import forward_basis, _table_key
-from lz4jpeg_tpu.ops.rle import SPARSE16_DELTA_BIAS
+from lz4jpeg_tpu.ops.fused import _table_key, forward_basis
+from lz4jpeg_tpu.ops.rle import COMBINED_LANES, SPARSE16_DELTA_BIAS
 
-C_CHUNK = 2048  # blocks per grid step (measured best of 1024/2048/4096)
-
-# Combined-output lane ranges: [0, 64) luma, [64, 96) Cr, [96, 128) Cb.
-COMBINED_LANES = 128
-LUM_SLICE = slice(0, 64)
-CR_SLICE = slice(64, 96)
-CB_SLICE = slice(96, 128)
-# The one channel→lane-range mapping every consumer shares (models,
-# container, roofline) — re-declaring it per call site invites drift.
-CHANNEL_SLICES = {"lum": LUM_SLICE, "r": CR_SLICE, "b": CB_SLICE}
+TILE_BLOCKS = 64  # MCUs per program (a power of two, as Triton requires)
+NUM_WARPS = 8  # measured best with TILE_BLOCKS on an H200 (PERF.md)
+_STORE_BIAS = 4096  # coefficients are stored biased positive in uint16
 
 
 @functools.lru_cache(maxsize=None)
-def _kt_bases(lum_key: bytes, chr_key: bytes):
-    """(my (64,64), mc64 (64,64 zero-padded), offs (128,1)) f32 numpy.
-
-    ``mc64`` folds the 4:2:2 odd-column subsample into the chroma
-    forward basis: chroma block position (r, c') reads full-res tile
-    column 2c'+1 (``chroma_subsample_422`` keeps odd columns,
-    JPEG.c:327-333).  Rows 32..63 are zero padding so both bases share
-    one (64, 64) operand shape."""
+def _bases(lum_key: bytes, chr_key: bytes):
+    """Kernel operands as float32 numpy arrays: transposed fused bases
+    (64, 64) and (32, 32), and offsets (1, 64) and (1, 32)."""
     my, offy = forward_basis(8, 8, lum_key)
     mc, offc = forward_basis(4, 8, chr_key)
-    mc64 = np.zeros((64, 64))
-    k_idx = np.arange(32)[:, None, None]
-    r_idx = np.arange(8)[None, :, None]
-    c_idx = np.arange(4)[None, None, :]
-    mc64[k_idx, r_idx * 8 + 2 * c_idx + 1] = mc.reshape(32, 8, 4)[
-        k_idx, r_idx, c_idx
-    ]
-    offs = np.concatenate([offy, offc, offc])[:, None]
     return (
-        my.astype(np.float32),
-        mc64.astype(np.float32),
-        offs.astype(np.float32),
+        np.ascontiguousarray(my.T, np.float32),
+        np.ascontiguousarray(mc.T, np.float32),
+        offy.astype(np.float32)[None, :],
+        offc.astype(np.float32)[None, :],
     )
 
 
-def rgb_to_kt(rgb: jnp.ndarray) -> jnp.ndarray:
-    """(..., H, W, 3) uint8 → (3, 64, N) uint8 kt block layout.
-
-    N = prod(batch) · (H/8) · (W/8), block index in block-row-major
-    order (frames outermost).  Pure transpose — XLA runs it at stream
-    rate; requires H % 8 == 0 and W % 8 == 0."""
-    *batch, h, w, _ = rgb.shape
-    bh, bw = h // 8, w // 8
-    x = rgb.reshape(*batch, bh, 8, bw, 8, 3)
-    nb = len(batch)
-    # axes: [batch...], bh, 8, bw, 8, 3 → 3, 8(row), 8(col), [batch...], bh, bw
-    perm = (nb + 4, nb + 1, nb + 3, *range(nb), nb, nb + 2)
-    return x.transpose(*perm).reshape(3, 64, -1)
+def _snap_trunc_i32(x, eps):
+    """``ops/color.py::_snap_trunc`` then int32, from primitives the
+    Triton lowering has (no ``round``): within ``eps`` of an integer the
+    nearest integer is ``floor(x + 0.5)``, and float→int truncates."""
+    nearest = jnp.floor(x + 0.5)
+    return jnp.where(jnp.abs(x - nearest) <= eps, nearest, x).astype(jnp.int32)
 
 
-def _fwd_kernel(x_ref, my_ref, mc_ref, off_ref, out_ref):
-    """One (3, 64, C) u8 chunk → (C, 128) i16 combined sparse streams."""
-    x = x_ref[0]
-    r = x[0].astype(jnp.int32).astype(jnp.float32)
-    g = x[1].astype(jnp.int32).astype(jnp.float32)
-    b = x[2].astype(jnp.int32).astype(jnp.float32)
-    # Reference color semantics: Y truncated, Cr/Cb truncated then
-    # clamped (JPEG.c:127,157,180,132-139); snap handles XLA/Mosaic
-    # reassociation exactly as ops/color.py does.
-    y = _snap_trunc(0.299 * r + 0.587 * g + 0.114 * b, 1e-4)
-    cr = jnp.clip(
-        _snap_trunc(0.439 * r - 0.368 * g - 0.071 * b + 128.0, 1e-4),
-        0.0, 255.0,
-    )
-    cb = jnp.clip(
-        _snap_trunc(-0.148 * r - 0.291 * g + 0.439 * b + 128.0, 1e-4),
-        0.0, 255.0,
-    )
+def _fwd_kernel(
+    x_ref, my_ref, mc_ref, offy_ref, offc_ref, o_ref,
+    *, width: int, bpr: int, nblocks: int, tb: int, threads: bool,
+):
+    # Blocks n of this program, in block-row-major order.  Rows past the
+    # last block read the last block's pixels and write the padding rows
+    # the wrapper slices off, so no load leaves the image and no two rows
+    # store to one address.
+    n = pl.program_id(0) * tb + jax.lax.broadcasted_iota(jnp.int32, (tb, 1), 0)
+    nc = jnp.minimum(n, nblocks - 1)
+    row = jax.lax.div(nc, jnp.int32(bpr))
+    bx = jax.lax.rem(nc, jnp.int32(bpr))
 
-    def dct(m_ref, plane):
-        # Fused DCT+quant+zigzag basis matmul (ops/fused.py semantics);
-        # HIGHEST is bit-identical to the XLA plane einsum (measured).
-        return jax.lax.dot_general(
-            m_ref[:], plane, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
+    def channels(k, cols_log2, col_of):
+        # Pixel index of position k of each block in the tile; the image
+        # arrives as little-endian uint32 words (see ``forward_kernel``).
+        pix = (
+            (row * 8 + jnp.right_shift(k, cols_log2)) * width
+            + bx * 8 + col_of(k)
         )
+        out = []
+        for ch in range(3):
+            byte = pix * 3 + ch
+            word = x_ref[jnp.right_shift(byte, 2)]
+            shift = (jnp.bitwise_and(byte, 3) * 8).astype(jnp.uint32)
+            value = jnp.bitwise_and(
+                jax.lax.shift_right_logical(word, shift), jnp.uint32(0xFF)
+            )
+            out.append(value.astype(jnp.int32).astype(jnp.float32))
+        return out
 
-    zz = jnp.concatenate(
-        [dct(my_ref, y), dct(mc_ref, cr)[:32], dct(mc_ref, cb)[:32]],
-        axis=0,
-    ) - off_ref[:]
-    xq = _snap_trunc(zz, 1e-5).astype(jnp.int32)  # (128, C)
-    # Sparse-delta epilogue, segment-local over the three channel bands
-    # stacked on sublanes (segment starts at rows 0, 64, 96).
-    m = jax.lax.broadcasted_iota(jnp.int32, xq.shape, 0)
-    first = (m == 0) | (m == 64) | (m == 96)
-    prev = pltpu.roll(xq, shift=1, axis=0)
-    starts = first | (xq != prev)
-    w = jnp.where(
-        starts, xq - jnp.where(first, 0, prev) + SPARSE16_DELTA_BIAS, 0
-    )
-    out_ref[:] = w.T.astype(jnp.int16)
+    def dct(plane, m_ref, off_ref):
+        ratio = pl.dot(
+            plane, m_ref[...], precision=jax.lax.Precision.HIGHEST
+        ) - off_ref[...]
+        return _snap_trunc_i32(ratio, 1e-5)
+
+    def store_sparse(xq, lane0, lanes):
+        # Sparse-delta epilogue through the program's own output rows (see
+        # the module docstring): lane 0 of each channel has predecessor 0.
+        lane = jax.lax.broadcasted_iota(jnp.int32, (1, lanes), 1)
+        row_base = n * COMBINED_LANES + lane0
+        o_ref[row_base + lane] = (xq + _STORE_BIAS).astype(jnp.uint16)
+        if threads:  # the interpreter runs a program as one sequence
+            plgpu.debug_barrier()
+        first = lane == 0
+        prev = plgpu.load(
+            o_ref.at[row_base + jnp.maximum(lane - 1, 0)],
+            mask=jnp.broadcast_to(~first, (tb, lanes)),
+            other=_STORE_BIAS,
+        ).astype(jnp.int32) - _STORE_BIAS
+        if threads:
+            plgpu.debug_barrier()
+        w = jnp.where(first | (xq != prev), xq - prev + SPARSE16_DELTA_BIAS, 0)
+        o_ref[row_base + lane] = w.astype(jnp.uint16)
+
+    # Luma: all 64 positions, row-major within the 8×8 tile.  Reference
+    # color semantics: Y truncated, Cr/Cb truncated then clamped
+    # (JPEG.c:127,157,180,132-139).
+    k64 = jax.lax.broadcasted_iota(jnp.int32, (1, 64), 1)
+    r, g, b = channels(k64, 3, lambda k: jnp.bitwise_and(k, 7))
+    y = _snap_trunc_i32(0.299 * r + 0.587 * g + 0.114 * b, 1e-4)
+    store_sparse(dct(y.astype(jnp.float32), my_ref, offy_ref), 0, 64)
+
+    # Chroma: the 8×4 subsampled tile reads full-resolution column 2c+1.
+    k32 = jax.lax.broadcasted_iota(jnp.int32, (1, 32), 1)
+    r, g, b = channels(k32, 2, lambda k: 2 * jnp.bitwise_and(k, 3) + 1)
+    for lane0, plane in (
+        (64, 0.439 * r - 0.368 * g - 0.071 * b + 128.0),
+        (96, -0.148 * r - 0.291 * g + 0.439 * b + 128.0),
+    ):
+        c = jnp.clip(_snap_trunc_i32(plane, 1e-4), 0, 255)
+        store_sparse(dct(c.astype(jnp.float32), mc_ref, offc_ref), lane0, 32)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _fwd_call(rgb_kt: jnp.ndarray, my, mc64, offs, *, interpret: bool):
-    n = rgb_kt.shape[-1]
-    g = n // C_CHUNK
-    xc = rgb_kt.reshape(3, 64, g, C_CHUNK).transpose(2, 0, 1, 3)
-    return pl.pallas_call(
-        _fwd_kernel,
-        grid=(g,),
-        in_specs=[
-            pl.BlockSpec((1, 3, 64, C_CHUNK), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((64, 64), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((64, 64), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((COMBINED_LANES, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((C_CHUNK, COMBINED_LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, COMBINED_LANES), jnp.int16),
-        interpret=interpret,
-    )(xc, my, mc64, offs)
-
-
-def forward_megakernel(
-    rgb_kt: jnp.ndarray,
+def forward_kernel(
+    rgb: jnp.ndarray,
     lum_table: np.ndarray,
     chr_table: np.ndarray,
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """(3, 64, N) uint8 kt RGB → (N, 128) uint16 combined sparse streams
-    (lanes: 64 luma + 32 Cr + 32 Cb sparse-delta slots per block).
+    """(H, W, 3) uint8 → (N, 128) uint16 combined sparse streams, N =
+    (H/8)·(W/8) blocks in block-row-major order.  Requires H % 8 == 0 and
+    W % 8 == 0.  Batches through ``jax.vmap`` (one grid axis per frame).
 
-    N is padded up to a C_CHUNK multiple internally (zero blocks → valid
-    all-zero-delta streams); callers slice ``[:N]``.  Output is
-    bit-identical to the XLA chain: color → plane einsums →
-    ``rle_encode_sparse16`` per channel (tests/test_pallas_fwd.py).
+    The image goes in as uint32 words: the Triton lowering addresses an
+    operand under 4 GiB with 32-bit element offsets that the pointer
+    arithmetic reads as signed, so a uint8 batch between 2 and 4 GiB (256
+    frames of 2048²) would wrap; words keep every offset below 2**30.
     """
-    if rgb_kt.shape[:2] != (3, 64):
-        raise ValueError(f"bad kt shape {rgb_kt.shape}")
-    n = rgb_kt.shape[-1]
-    pad = (-n) % C_CHUNK
-    if pad:
-        rgb_kt = jnp.pad(rgb_kt, ((0, 0), (0, 0), (0, pad)))
-    my, mc64, offs = _kt_bases(_table_key(lum_table), _table_key(chr_table))
-    out = _fwd_call(
-        rgb_kt, jnp.asarray(my), jnp.asarray(mc64), jnp.asarray(offs),
+    h, w, _ = rgb.shape
+    if h % 8 or w % 8:
+        raise ValueError(f"forward kernel needs 8-aligned shapes: {rgb.shape}")
+    nblocks, bpr = (h // 8) * (w // 8), w // 8
+    grid = pl.cdiv(nblocks, TILE_BLOCKS)
+    consts = _bases(_table_key(lum_table), _table_key(chr_table))
+    words = jax.lax.bitcast_convert_type(rgb.reshape(-1, 4), jnp.uint32)
+    out = pl.pallas_call(
+        functools.partial(
+            _fwd_kernel, width=w, bpr=bpr, nblocks=nblocks,
+            tb=TILE_BLOCKS, threads=not interpret,
+        ),
+        grid=(grid,),
+        out_shape=jax.ShapeDtypeStruct(
+            (grid * TILE_BLOCKS * COMBINED_LANES,), jnp.uint16
+        ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
         interpret=interpret,
-    )
-    out = jax.lax.bitcast_convert_type(out, jnp.uint16)
-    return out[:n] if pad else out
-
-
-def sparse_lengths(combined: jnp.ndarray) -> dict:
-    """(N, 128) combined sparse streams → per-channel symbol lengths
-    ((N,) int32 each, 2·runs — the ``rle_encode_sparse16`` side channel).
-
-    One XLA lane-reduce pass; production entropy paths get lengths from
-    the native walk instead and never call this."""
-    nz = (combined != 0).astype(jnp.int32)
-    return {
-        "lum": 2 * jnp.sum(nz[:, LUM_SLICE], axis=1),
-        "r": 2 * jnp.sum(nz[:, CR_SLICE], axis=1),
-        "b": 2 * jnp.sum(nz[:, CB_SLICE], axis=1),
-    }
+        name="jpeg_forward_sparse16",
+    )(words, *(jnp.asarray(c) for c in consts))
+    out = out.reshape(grid * TILE_BLOCKS, COMBINED_LANES)
+    return out if grid * TILE_BLOCKS == nblocks else out[:nblocks]

@@ -1,7 +1,7 @@
 """Zigzag reordering as a batched gather.
 
 The reference walks anti-diagonals with per-element control flow
-(``zigzag_pattern``, JPEG.c:693-728).  On TPU the permutation is a
+(``zigzag_pattern``, JPEG.c:693-728).  Here the permutation is a
 compile-time constant (computed once from the oracle's literal
 transcription), so the whole op is a single ``take`` along the last axis —
 XLA lowers it to a vectorized gather — and in the fused transform
@@ -37,8 +37,8 @@ def reverse_zigzag(zz: jnp.ndarray, width: int, height: int) -> jnp.ndarray:
     """(N, H*W) zigzag streams → (N, H*W) row-major blocks.
 
     Implemented as a gather with the inverse permutation of the reference's
-    scatter (``reverse_zigzag_pattern``, JPEG.c:729-764) — gathers are
-    cheaper than scatters on TPU.
+    scatter (``reverse_zigzag_pattern``, JPEG.c:729-764) — a gather needs
+    no write conflicts resolved.
     """
     sperm = reverse_zigzag_indices(width, height)
     gather = jnp.asarray(_inverse_permutation(sperm))

@@ -1,6 +1,6 @@
 """Exact NumPy/Python transcriptions of the reference codec semantics.
 
-These are the oracles (ground truth) that every TPU kernel in ``ops/`` and
+These are the oracles (ground truth) that every device kernel in ``ops/`` and
 every pipeline in ``models/`` is verified against, including every
 quirk of the reference C code — uint8 length truncation, signed-``char``
 decode arithmetic, truncating quantization — because bit-exactness against

@@ -1,8 +1,8 @@
 """Executable specification of the reference JPEG-style pipeline.
 
 A faithful float64 transcription of
-``/root/reference/Algorithms/sequential/JPEG/JPEG.c`` — the ground truth the
-batched TPU kernels in ``ops/`` are verified against, coefficient-exact.
+the reference's ``Algorithms/sequential/JPEG/JPEG.c`` — the ground truth the
+batched device kernels in ``ops/`` are verified against, coefficient-exact.
 
 Reference semantics reproduced here (citations into the reference file):
 
@@ -83,7 +83,7 @@ def _snap(x: np.ndarray, eps: float = 1e-4) -> np.ndarray:
     integer and snapping with eps=1e-4 is provably exact.  At exact-integer
     true values the C's literal double expression may itself land an ulp
     below the integer (e.g. 0.299·R+0.587·G+0.114·B for an exact 110.0) and
-    truncate "wrong" — snapping defines the deterministic semantics the TPU
+    truncate "wrong" — snapping defines the deterministic semantics the device
     pipeline uses.
     """
     nearest = np.round(x)
@@ -97,7 +97,7 @@ def build_ycbcr_planes(
 
     ``snap_ties=False`` is the bug-compatible C behavior (truncate the raw
     double expression); ``snap_ties=True`` snaps exact-integer ties first
-    (see ``_snap``) — the deterministic semantics of the TPU pipeline.
+    (see ``_snap``) — the deterministic semantics of the device pipeline.
     """
     r = rgb[..., 0].astype(np.float64)
     g = rgb[..., 1].astype(np.float64)
@@ -258,7 +258,7 @@ def quantize_oracle(
     it first.  At such *quantization ties* the true coefficient is an exact
     multiple of the table entry and the C's result is an order/libm-dependent
     ulp artifact (see ``ops/quantize.py``); snapping makes the result
-    deterministic and is what the TPU pipeline does.  ``snap_ties=False`` is
+    deterministic and is what the device pipeline does.  ``snap_ties=False`` is
     the bug-compatible C behavior.
     """
     ratio = coefficients / table.astype(np.float64)
@@ -483,7 +483,7 @@ def jpeg_forward_oracle(rgb: np.ndarray, snap_ties: bool = False) -> Dict[str, o
     """PNG pixels → quantized+zigzagged coefficients and RLE streams.
 
     Mirrors JPEG.c main():1103-1220 (encode half).  Returns every
-    intermediate needed to verify TPU kernels stage by stage.
+    intermediate needed to verify device kernels stage by stage.
     ``snap_ties`` selects deterministic tie handling (see
     ``quantize_oracle``); False is the bug-compatible C behavior.
     """

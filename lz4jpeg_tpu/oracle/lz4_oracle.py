@@ -1,6 +1,6 @@
 """Executable specification of the reference LZ4-style codec.
 
-A faithful transcription of ``/root/reference/Algorithms/sequential/LZ4/LZ4.c``
+A faithful transcription of the reference's ``Algorithms/sequential/LZ4/LZ4.c``
 semantics into pure Python — including its quirks, which are load-bearing for
 bit-exactness against the committed golden pair
 (``Output-Input/input/input.txt`` ↔ ``Output-Input/out/compressed.bin``):

@@ -3,10 +3,10 @@
 The reference's entire parallel repertoire is one Win32 thread per
 block/MCU with lock-guarded shared structs and an index-addressed ordered
 gather (``Algorithms/parallel/LZ4/LZ4.c:495-514, :742``;
-``Algorithms/parallel/JPEG/JPEG.c:1297-1304``).  The TPU-native equivalent:
+``Algorithms/parallel/JPEG/JPEG.c:1297-1304``).  The device-mesh equivalent:
 
-* a 1-D (or hosts×chips 2-D) ``jax.sharding.Mesh`` over ICI/DCN
-  (``mesh.py``);
+* a 1-D ``jax.sharding.Mesh`` over the visible devices, within a host
+  (NVLink) or across hosts (``mesh.py``);
 * the block/MCU batch axis sharded across devices under ``jit`` /
   ``shard_map`` — XLA partitions the batched kernels, no locks exist by
   construction (``jpeg.py``, ``lz4.py``);

@@ -93,7 +93,7 @@ class ShardedJPEGForward:
         n_mcus = bpc * bpr
         if layout is None:
             if np.asarray(rle["lum"]).dtype == np.uint16:
-                # uint16 is AMBIGUOUS since round 5 (packed16 pairs vs
+                # uint16 is AMBIGUOUS (packed16 pairs vs
                 # sparse16 deltas carry the same dtype); decoding sparse
                 # words as pairs would silently corrupt the image, so
                 # demand an explicit layout instead of guessing.
@@ -169,13 +169,12 @@ class ShardedJPEGForward:
 
 
 class ShardedSparseJPEG:
-    """Round-5 production multi-chip JPEG: the sparse16 forward (the
-    megakernel chain on TPU shards) and the folded inverse, band-sharded
-    over the mesh with ``shard_map``.
+    """Production multi-device JPEG: the sparse16 forward and the folded
+    inverse, band-sharded over the mesh with ``shard_map``.
 
     Every forward and inverse op is row-local at 8-pixel-band
-    granularity (color, 4:2:2, the kt transpose, the per-block basis
-    matmuls, the plane merges), so a contiguous band of block-rows per
+    granularity (color, 4:2:2, the per-block basis matmuls, the plane
+    merges), so a contiguous band of block-rows per
     device needs NO cross-device communication until the output
     sharding itself — the collective equivalent of the reference's
     thread-per-MCU fan-out (JPEG.c:1297-1304) with the gather done by
@@ -230,10 +229,9 @@ class ShardedSparseJPEG:
 
             @jax.jit
             def fwd(x):
-                # check_vma=False: the megakernel's pallas_call out_shape
-                # carries no varying-mesh-axes annotation; the shard is
-                # purely data-parallel (no collectives), so the check
-                # adds nothing here.
+                # check_vma=False: the shard is purely data-parallel (no
+                # collectives), so the varying-mesh-axes check adds
+                # nothing here.
                 return shard_map(
                     impl, mesh=self.mesh,
                     in_specs=P(self._axis),
@@ -297,7 +295,7 @@ def multihost_jpeg_encode(rgb: np.ndarray, config: JPEGConfig = None) -> bytes:
       independent);
     * per-channel symbol histograms all-reduce across processes, so every
       process builds the *identical* canonical codebook — the broadcast
-      shared-tables pattern over DCN;
+      shared-tables pattern across hosts;
     * each process entropy-packs its own band and the bitstreams gather in
       band order (``ordered_allgather_payloads``) with a host-side bit
       concatenation, since substreams end at arbitrary bit offsets.
@@ -343,7 +341,7 @@ def multihost_jpeg_encode(rgb: np.ndarray, config: JPEGConfig = None) -> bytes:
 
         slim = jax.device_get(pipeline._forward_rle(jnp.asarray(band)))
         if pipeline._sparse16:
-            # sparse-delta combined buffer (round 5): the native hist
+            # sparse-delta combined buffer: the native hist
             # walk also yields the symbol totals the pack pass sizes by.
             from lz4jpeg_tpu.models.jpeg import _sparse_symbols_host
 

@@ -66,17 +66,13 @@ def sharded_fast_parse(
     """Fast-mode (LZ4T) match finding with the block axis sharded.
 
     Same layout contract as ``sharded_block_parse`` but running the
-    fast-mode matcher (``ops/pallas_match.py``'s fused kernel on TPU
-    meshes, the portable sort formulation elsewhere) per shard — 16 KiB
+    fast-mode sort matcher (``ops/lz4_fast.py``) per shard — 16 KiB
     blocks are the natural DP unit for large inputs.  ``blocks`` row
     count must be a multiple of the mesh size.
     """
     from lz4jpeg_tpu.ops.lz4_fast import fast_match_blocks
 
     axis = mesh.axis_names[0]
-    use_fused = all(
-        d.platform == "tpu" for d in mesh.devices.flat
-    )
 
     @functools.partial(
         shard_map,
@@ -86,18 +82,9 @@ def sharded_fast_parse(
         check_vma=False,  # all_gather output is replicated (see above)
     )
     def parse_shard(shard, shard_lengths):
-        if use_fused:
-            from lz4jpeg_tpu.ops.pallas_match import (
-                fast_match_blocks_pallas,
-            )
-
-            is_match, emit_len, emit_dist = fast_match_blocks_pallas(
-                shard, shard_lengths
-            )
-        else:
-            is_match, emit_len, emit_dist = fast_match_blocks(
-                shard, shard_lengths
-            )
+        is_match, emit_len, emit_dist = fast_match_blocks(
+            shard, shard_lengths
+        )
         stacked = jnp.stack(
             [is_match.astype(jnp.int32), emit_len, emit_dist], axis=1
         )
@@ -132,13 +119,13 @@ def sharded_compressed_sizes(
 
 
 def sharded_resolve_blocks(
-    lit: np.ndarray, src: np.ndarray, mesh: Mesh, steps: int = None
+    lit: np.ndarray, src: np.ndarray, mesh: Mesh
 ) -> np.ndarray:
     """Device-parallel LZ4T match resolution with the block axis sharded.
 
     The decode-side mirror of ``sharded_fast_parse``: every device runs the
-    batched pointer-doubling copy-resolve (``ops/lz4t_decode.py``) on its
-    rows of the copy program, then the reconstructed blocks all-gather in
+    batched copy resolve (``ops/lz4t_decode.py``) on its rows of the fully
+    rooted copy program, then the reconstructed blocks all-gather in
     original order.  Legal because LZ4T match chains never cross a block —
     the capability match for the reference's thread-per-block decode
     (``Algorithms/parallel/LZ4/LZ4.c:1105-1222``), whose create/wait pair
@@ -148,8 +135,6 @@ def sharded_resolve_blocks(
     from lz4jpeg_tpu.ops.lz4t_decode import resolve_blocks
 
     axis = mesh.axis_names[0]
-    if steps is None:
-        steps = (src.shape[1] - 1).bit_length()
 
     @functools.partial(
         shard_map,
@@ -159,7 +144,7 @@ def sharded_resolve_blocks(
         check_vma=False,  # all_gather output is replicated (see above)
     )
     def resolve_shard(lit_s, src_s):
-        out = resolve_blocks(lit_s, src_s, steps)
+        out = resolve_blocks(lit_s, src_s)
         return jax.lax.all_gather(out, axis, axis=0, tiled=True)
 
     return np.asarray(
@@ -174,22 +159,16 @@ def sharded_fast_decode(frame: bytes, mesh: Mesh) -> bytes:
     up-front size table), the mesh resolves all match chains in parallel.
     """
     from lz4jpeg_tpu.formats.fast_frame import verify_frame_checksum
-    from lz4jpeg_tpu.ops.lz4t_decode import (
-        _trim_rows,
-        build_copy_program_fast,
-        depth_to_steps,
-    )
+    from lz4jpeg_tpu.ops.lz4t_decode import _trim_rows, build_copy_program_fast
     from lz4jpeg_tpu.parallel.mesh import pad_to_devices
 
-    lit, src, raw_sizes, p, max_depth = build_copy_program_fast(frame)
+    lit, src, raw_sizes, _, _ = build_copy_program_fast(frame)
     if lit.shape[0] == 0:
         return b""
     n_dev = mesh.devices.size
     lit_p, n_blocks = pad_to_devices(lit, n_dev, pad_value=0)
     src_p, _ = pad_to_devices(src, n_dev, pad_value=-1)
-    out = sharded_resolve_blocks(
-        lit_p, src_p, mesh, steps=depth_to_steps(max_depth)
-    )[:n_blocks]
+    out = sharded_resolve_blocks(lit_p, src_p, mesh)[:n_blocks]
     decoded = _trim_rows(out, raw_sizes)
     verify_frame_checksum(frame, decoded)
     return decoded
@@ -215,13 +194,12 @@ def multihost_fast_decode(frame: bytes) -> bytes:
     from lz4jpeg_tpu.formats.fast_frame import verify_frame_checksum
     from lz4jpeg_tpu.ops.lz4t_decode import (
         build_copy_program_fast,
-        depth_to_steps,
         resolve_blocks,
     )
     from lz4jpeg_tpu.parallel.multihost import ordered_allgather_payloads
 
     pid, nproc = jax.process_index(), jax.process_count()
-    lit, src, raw_sizes, p, max_depth = build_copy_program_fast(frame)
+    lit, src, raw_sizes, _, _ = build_copy_program_fast(frame)
     num_blocks = lit.shape[0]
     if num_blocks == 0:
         return b""
@@ -231,9 +209,7 @@ def multihost_fast_decode(frame: bytes) -> bytes:
         out = np.asarray(
             jax.device_get(
                 resolve_blocks(
-                    jnp.asarray(lit[mine]),
-                    jnp.asarray(src[mine]),
-                    depth_to_steps(max_depth),
+                    jnp.asarray(lit[mine]), jnp.asarray(src[mine])
                 )
             )
         )
@@ -256,7 +232,7 @@ def multihost_fast_encode(data: bytes) -> bytes:
     The multi-host version of the reference's pre-sized ordered gather
     (``parallel_add_block_to_frame``, Algorithms/parallel/LZ4/LZ4.c:495-514)
     — block independence makes the frame bytes equal to a single-process
-    ``LZ4Codec.encode(engine="tpu")`` of the same input.  Call under an
+    ``LZ4Codec.encode(engine="device")`` of the same input.  Call under an
     initialized ``jax.distributed`` runtime (``parallel.multihost``); in a
     single process it degrades to a local encode.
     """
@@ -269,14 +245,14 @@ def multihost_fast_encode(data: bytes) -> bytes:
     )
     from lz4jpeg_tpu.native import native_available, native_backend
     from lz4jpeg_tpu.ops.lz4_fast import (
-        TPU_BLOCK_LOG,
+        DEVICE_BLOCK_LOG,
         fast_match_blocks,
         pad_blocks_fast,
     )
     from lz4jpeg_tpu.parallel.multihost import ordered_allgather_payloads
 
     pid, nproc = jax.process_index(), jax.process_count()
-    padded, lengths = pad_blocks_fast(data, TPU_BLOCK_LOG)
+    padded, lengths = pad_blocks_fast(data, DEVICE_BLOCK_LOG)
     num_blocks = padded.shape[0]
     mine = list(range(pid, num_blocks, nproc))
     data_u8 = padded.astype(np.uint8)
@@ -300,4 +276,4 @@ def multihost_fast_encode(data: bytes) -> bytes:
     raws = [
         data_u8[bi, : int(lengths[bi])].tobytes() for bi in range(num_blocks)
     ]
-    return assemble_frame(payloads, raws, len(data), TPU_BLOCK_LOG)
+    return assemble_frame(payloads, raws, len(data), DEVICE_BLOCK_LOG)

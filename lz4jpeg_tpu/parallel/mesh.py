@@ -14,10 +14,11 @@ from lz4jpeg_tpu.config import MeshConfig
 def codec_mesh(config: MeshConfig = MeshConfig()) -> Mesh:
     """A 1-D device mesh over the block/MCU data axis.
 
-    Uses all visible devices by default.  Within a slice the axis rides ICI;
-    across hosts (after ``jax.distributed.initialize``) ``jax.devices()``
-    spans DCN and the same mesh covers the multi-host case — collectives
-    are inserted by XLA either way.
+    Uses all visible devices by default.  Within a host the axis rides the
+    device interconnect (NVLink); across hosts (after
+    ``jax.distributed.initialize``) ``jax.devices()`` spans the network and
+    the same mesh covers the multi-host case — collectives are inserted by
+    XLA either way.
     """
     devices = jax.devices()
     n = config.num_devices or len(devices)

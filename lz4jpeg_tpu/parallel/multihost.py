@@ -2,7 +2,7 @@
 
 The reference's world is one process with shared memory; its "gather" is
 ``frame_blocks[index] = *block`` under a critical section
-(``Algorithms/parallel/LZ4/LZ4.c:495-514``).  Across hosts the TPU-native
+(``Algorithms/parallel/LZ4/LZ4.c:495-514``).  Across hosts the collective
 equivalents are:
 
 * ``initialize()`` — ``jax.distributed.initialize`` when launched with

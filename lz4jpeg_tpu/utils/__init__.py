@@ -16,7 +16,8 @@ from lz4jpeg_tpu.utils.io import (  # noqa: F401
 from lz4jpeg_tpu.utils.inputs import (  # noqa: F401
     extract_random_passage,
     generate_noise_image,
-    load_corpus,
+    generate_photo_image,
+    generate_text_corpus,
 )
 from lz4jpeg_tpu.utils.metrics import mse, mse_rgb, psnr  # noqa: F401
 from lz4jpeg_tpu.utils.profiling import fenced, time_device, trace  # noqa: F401

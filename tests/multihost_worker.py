@@ -45,13 +45,12 @@ def main() -> int:
 
     # Full cross-process fast encode: strided block shards, ordered payload
     # gather, identical frame on every process, equal to the single-process
-    # TPU-engine encode (asserted by the launcher via the golden file).
+    # device-engine encode (asserted by the launcher).
     from lz4jpeg_tpu.formats.fast_frame import decode_fast
     from lz4jpeg_tpu.parallel.lz4 import multihost_fast_encode
+    from lz4jpeg_tpu.utils.inputs import generate_text_corpus
 
-    data = open(
-        "/root/reference/Output-Input/input/Metamorphosis.txt", "rb"
-    ).read()
+    data = generate_text_corpus(120_000, seed=0)
     frame = multihost_fast_encode(data)
     assert decode_fast(frame) == data
     out_path = sys.argv[4]

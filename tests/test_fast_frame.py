@@ -13,9 +13,9 @@ needs_native = pytest.mark.skipif(
 )
 
 
-def corpus_sample(metamorphosis, rng, size):
-    start = int(rng.integers(0, len(metamorphosis) - size))
-    return metamorphosis[start : start + size]
+def corpus_sample(text_corpus, rng, size):
+    start = int(rng.integers(0, len(text_corpus) - size))
+    return text_corpus[start : start + size]
 
 
 CASES = [
@@ -31,10 +31,10 @@ class TestPythonSpec:
     def test_roundtrip(self, data):
         assert fast_frame.decode_fast(fast_frame.encode_fast(data)) == data
 
-    def test_roundtrip_corpus(self, metamorphosis):
-        enc = fast_frame.encode_fast(metamorphosis)
-        assert fast_frame.decode_fast(enc) == metamorphosis
-        assert len(enc) < len(metamorphosis)  # actually compresses text
+    def test_roundtrip_corpus(self, text_corpus):
+        enc = fast_frame.encode_fast(text_corpus)
+        assert fast_frame.decode_fast(enc) == text_corpus
+        assert len(enc) < len(text_corpus)  # actually compresses text
 
     def test_roundtrip_noise_stored_raw(self, rng):
         data = bytes(rng.integers(0, 256, size=70000, dtype=np.uint8))
@@ -43,8 +43,8 @@ class TestPythonSpec:
         # Incompressible blocks are stored raw: bounded expansion.
         assert len(enc) <= len(data) + 20 + 4 * 2 + 16
 
-    def test_multi_block_ragged(self, metamorphosis):
-        data = metamorphosis  # 118 KB → 2 blocks, ragged tail
+    def test_multi_block_ragged(self, text_corpus):
+        data = text_corpus  # 118 KB → 2 blocks, ragged tail
         enc = fast_frame.encode_fast(data)
         assert fast_frame.decode_fast(enc) == data
 
@@ -55,14 +55,14 @@ class TestNativeParity:
     def test_encode_byte_identical(self, data):
         assert native_backend().encode_fast(data) == fast_frame.encode_fast(data)
 
-    def test_encode_byte_identical_corpus(self, metamorphosis):
+    def test_encode_byte_identical_corpus(self, text_corpus):
         assert (
-            native_backend().encode_fast(metamorphosis)
-            == fast_frame.encode_fast(metamorphosis)
+            native_backend().encode_fast(text_corpus)
+            == fast_frame.encode_fast(text_corpus)
         )
 
-    def test_cross_decode(self, metamorphosis, rng):
-        sample = corpus_sample(metamorphosis, rng, 50000)
+    def test_cross_decode(self, text_corpus, rng):
+        sample = corpus_sample(text_corpus, rng, 50000)
         py_enc = fast_frame.encode_fast(sample)
         assert native_backend().decode_fast(py_enc, len(sample)) == sample
         nat_enc = native_backend().encode_fast(sample)
@@ -81,9 +81,9 @@ class TestNativeParity:
 
 
 class TestCodecFastMode:
-    def test_roundtrip(self, metamorphosis):
+    def test_roundtrip(self, text_corpus):
         codec = LZ4Codec(LZ4Config(mode="fast"))
-        assert codec.roundtrip(metamorphosis) == metamorphosis
+        assert codec.roundtrip(text_corpus) == text_corpus
 
     def test_binary_roundtrip(self, rng):
         codec = LZ4Codec(LZ4Config(mode="fast"))
@@ -98,10 +98,10 @@ class TestCodecFastMode:
 
 
 class TestFileStreaming:
-    def test_file_roundtrip(self, tmp_path, metamorphosis):
+    def test_file_roundtrip(self, tmp_path, text_corpus):
         codec = LZ4Codec(LZ4Config(mode="fast"))
         src = tmp_path / "in.txt"
-        src.write_bytes(metamorphosis * 3)  # ~355 KB, 6 blocks
+        src.write_bytes(text_corpus * 3)  # ~355 KB, 6 blocks
         comp = tmp_path / "out.lz4t"
         n = codec.encode_file(str(src), str(comp), chunk_blocks=2)
         assert n == comp.stat().st_size < src.stat().st_size
@@ -109,14 +109,14 @@ class TestFileStreaming:
         assert codec.decode_file(str(comp), str(out)) == src.stat().st_size
         assert out.read_bytes() == src.read_bytes()
 
-    def test_file_frame_matches_inmemory(self, tmp_path, metamorphosis):
+    def test_file_frame_matches_inmemory(self, tmp_path, text_corpus):
         # The streamed frame must be byte-identical to the one-shot frame.
         codec = LZ4Codec(LZ4Config(mode="fast"))
         src = tmp_path / "in.txt"
-        src.write_bytes(metamorphosis)
+        src.write_bytes(text_corpus)
         comp = tmp_path / "out.lz4t"
         codec.encode_file(str(src), str(comp))
-        assert comp.read_bytes() == codec.encode(metamorphosis)
+        assert comp.read_bytes() == codec.encode(text_corpus)
 
     def test_file_with_incompressible_blocks(self, tmp_path, rng):
         codec = LZ4Codec(LZ4Config(mode="fast"))
@@ -144,30 +144,30 @@ class TestFileStreaming:
         assert codec.decode_file(str(comp), str(out)) == 0
         assert out.read_bytes() == b""
 
-    def test_python_engine_matches_spec_frame(self, tmp_path, metamorphosis):
+    def test_python_engine_matches_spec_frame(self, tmp_path, text_corpus):
         codec = LZ4Codec(LZ4Config(mode="fast"))
         src = tmp_path / "in.txt"
-        src.write_bytes(metamorphosis)
+        src.write_bytes(text_corpus)
         comp = tmp_path / "out.lz4t"
         codec.encode_file(str(src), str(comp), engine="python")
-        assert comp.read_bytes() == fast_frame.encode_fast(metamorphosis)
+        assert comp.read_bytes() == fast_frame.encode_fast(text_corpus)
 
-    def test_tpu_engine_file_roundtrip(self, tmp_path, metamorphosis):
+    def test_device_engine_file_roundtrip(self, tmp_path, text_corpus):
         # The device matcher at streaming-chunk granularity (16 KiB blocks).
         codec = LZ4Codec(LZ4Config(mode="fast"))
         src = tmp_path / "in.txt"
-        src.write_bytes(metamorphosis)
+        src.write_bytes(text_corpus)
         comp = tmp_path / "out.lz4t"
-        n = codec.encode_file(str(src), str(comp), chunk_blocks=4, engine="tpu")
+        n = codec.encode_file(str(src), str(comp), chunk_blocks=4, engine="device")
         assert n < src.stat().st_size
         out = tmp_path / "dec.txt"
-        assert codec.decode_file(str(comp), str(out)) == len(metamorphosis)
-        assert out.read_bytes() == metamorphosis
+        assert codec.decode_file(str(comp), str(out)) == len(text_corpus)
+        assert out.read_bytes() == text_corpus
 
-    def test_corrupt_file_raises_typed(self, tmp_path, metamorphosis):
+    def test_corrupt_file_raises_typed(self, tmp_path, text_corpus):
         codec = LZ4Codec(LZ4Config(mode="fast"))
         src = tmp_path / "in.txt"
-        src.write_bytes(metamorphosis)
+        src.write_bytes(text_corpus)
         comp = tmp_path / "out.lz4t"
         codec.encode_file(str(src), str(comp))
         blob = bytearray(comp.read_bytes())
@@ -180,12 +180,12 @@ class TestFileStreaming:
 
 @needs_native
 class TestNativeChunkAPI:
-    def test_encode_chunk_matches_spec(self, metamorphosis):
+    def test_encode_chunk_matches_spec(self, text_corpus):
         # One-call chunk compression must emit the same block payloads and
         # size records as the per-block spec walk.
         nb = native_backend()
-        body, recs = nb.encode_chunk(metamorphosis, 16)
-        frame = fast_frame.encode_fast(metamorphosis)
+        body, recs = nb.encode_chunk(text_corpus, 16)
+        frame = fast_frame.encode_fast(text_corpus)
         assert frame[20 + 4 * len(recs) :] == body
         import struct
 
@@ -193,39 +193,39 @@ class TestNativeChunkAPI:
             struct.unpack_from(f"<{len(recs)}I", frame, 20)
         )
 
-    def test_decode_chunk_roundtrip(self, metamorphosis):
+    def test_decode_chunk_roundtrip(self, text_corpus):
         nb = native_backend()
-        body, recs = nb.encode_chunk(metamorphosis, 16)
-        assert nb.decode_chunk(body, recs, 16, len(metamorphosis)) == (
-            metamorphosis
+        body, recs = nb.encode_chunk(text_corpus, 16)
+        assert nb.decode_chunk(body, recs, 16, len(text_corpus)) == (
+            text_corpus
         )
 
-    def test_decode_chunk_rejects_bad_sizes(self, metamorphosis):
+    def test_decode_chunk_rejects_bad_sizes(self, text_corpus):
         nb = native_backend()
-        body, recs = nb.encode_chunk(metamorphosis, 16)
+        body, recs = nb.encode_chunk(text_corpus, 16)
         recs = recs.copy()
         recs[0] += 1
         with pytest.raises(RuntimeError):
-            nb.decode_chunk(body, recs, 16, len(metamorphosis))
+            nb.decode_chunk(body, recs, 16, len(text_corpus))
 
 
 class TestContentChecksum:
-    def test_checksum_field_written(self, metamorphosis):
-        enc = fast_frame.encode_fast(metamorphosis)
+    def test_checksum_field_written(self, text_corpus):
+        enc = fast_frame.encode_fast(text_corpus)
         import struct
 
         (csum,) = struct.unpack_from("<H", enc, 6)
-        assert csum == fast_frame.content_checksum16(metamorphosis) != 0
+        assert csum == fast_frame.content_checksum16(text_corpus) != 0
 
-    def test_zero_checksum_frames_still_decode(self, metamorphosis):
+    def test_zero_checksum_frames_still_decode(self, text_corpus):
         # Frames from older writers carry 0 → verification is skipped.
-        enc = bytearray(fast_frame.encode_fast(metamorphosis))
+        enc = bytearray(fast_frame.encode_fast(text_corpus))
         enc[6] = enc[7] = 0
-        assert fast_frame.decode_fast(bytes(enc)) == metamorphosis
+        assert fast_frame.decode_fast(bytes(enc)) == text_corpus
         if native_available():
             assert (
-                native_backend().decode_fast(bytes(enc), len(metamorphosis))
-                == metamorphosis
+                native_backend().decode_fast(bytes(enc), len(text_corpus))
+                == text_corpus
             )
 
     def test_streaming_checksum_matches_oneshot(self):

@@ -60,12 +60,11 @@ class TestFusedForward:
 
 
 class TestMatmulPrecision:
-    """Guard against the TPU bf16-multiply default: all DCT-path matmuls
-    must request HIGHEST precision, else ~0.5% of quantized coefficients
-    flip across trunc boundaries on the real chip
-    (profiles/check_matmul_precision.py, results/formulation_ab.json).
-    The CPU cannot reproduce the flip, but the lowered jaxpr can be
-    inspected anywhere."""
+    """Guard against reduced-precision matmul defaults (TF32 on the GPU's
+    tensor cores, bf16 passes elsewhere): all DCT-path matmuls must request
+    HIGHEST precision, else quantized coefficients flip across trunc
+    boundaries on the accelerator.  The CPU cannot reproduce the flip,
+    but the lowered jaxpr can be inspected anywhere."""
 
     def test_forward_paths_request_highest(self):
         import jax

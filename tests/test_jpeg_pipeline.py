@@ -72,7 +72,7 @@ class TestRoundTrip:
 
 
 class TestPack16:
-    """u16 RLE transfer layouts: round 5 made the sparse-delta layout
+    """u16 RLE transfer layouts: the sparse-delta layout is
     (ops/rle.py sparse16) the production interchange for fast+shared
     pipelines whose quant tables bound |value| ≤ 511; the packed-pair
     layout stays as the tested spec + container fallback."""
@@ -90,7 +90,7 @@ class TestPack16:
         img = noise(rng, 24, 40)
         fast = JPEGPipeline(JPEGConfig(precision="fast", entropy="shared"))
         plain = JPEGPipeline(JPEGConfig(precision="fast", entropy="shared"))
-        plain._pack16 = plain._sparse16 = plain._megakernel = False
+        plain._pack16 = plain._sparse16 = False
         enc_p = fast.encode(img)
         enc_i = plain.encode(img)
         # identical entropy bitstreams from either layout
@@ -453,8 +453,7 @@ class TestDevicePackOverflow:
 
 class TestOverlappedEncode:
     def test_overlapped_container_is_byte_identical(self, rng):
-        """The banded d2h + two-pass banded entropy path (VERDICT r4
-        item 6) must produce byte-identical containers to the one-shot
+        """The banded d2h + two-pass banded entropy path must produce byte-identical containers to the one-shot
         path — the per-band bitstreams concatenate at bit level."""
         from lz4jpeg_tpu.formats.jpeg_container import pack_container
 

@@ -1,4 +1,4 @@
-"""Parity of the TPU-batched LZ4 codec against the oracle and golden files."""
+"""Parity of the device-batched LZ4 codec against the oracle and golden files."""
 
 import numpy as np
 import pytest
@@ -29,13 +29,13 @@ class TestParityEncode:
 
     @pytest.mark.parametrize("size", [350, 1000, 5000])
     def test_matches_oracle_on_random_extracts(
-        self, codec, metamorphosis, rng, size
+        self, codec, text_corpus, rng, size
     ):
-        text = extract(metamorphosis, rng, size)
+        text = extract(text_corpus, rng, size)
         assert codec.encode(text) == lz4_encode_oracle(text)
 
-    def test_roundtrip_20k(self, codec, metamorphosis, rng):
-        text = extract(metamorphosis, rng, 20000)
+    def test_roundtrip_20k(self, codec, text_corpus, rng):
+        text = extract(text_corpus, rng, 20000)
         enc = codec.encode(text)
         assert codec.decode(enc) == text
 

@@ -19,10 +19,10 @@ class TestDeviceDecode:
         assert decode_frame_device(golden_compressed) == golden_input
 
     @pytest.mark.parametrize("size", [350, 2000, 20000])
-    def test_matches_host_on_corpus(self, codec, metamorphosis, rng, size):
-        start = int(rng.integers(0, len(metamorphosis) - size))
+    def test_matches_host_on_corpus(self, codec, text_corpus, rng, size):
+        start = int(rng.integers(0, len(text_corpus) - size))
         text = (
-            metamorphosis[start : start + size]
+            text_corpus[start : start + size]
             .replace(b"\r", b" ")
             .replace(b"\n", b" ")
         )

@@ -1,4 +1,4 @@
-"""TPU fast-mode LZ4: hash-bucket matcher + rolling-hash LCP + emitters."""
+"""Device fast-mode LZ4: hash-bucket matcher + rolling-hash LCP + emitters."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,8 +37,8 @@ class TestMatcher:
         # round-trip); here just sanity-check the shape and low count.
         assert is_match.sum() < 20
 
-    def test_matches_are_real(self, metamorphosis):
-        data = metamorphosis[:8192]
+    def test_matches_are_real(self, text_corpus):
+        data = text_corpus[:8192]
         padded, lengths, is_match, emit_len, emit_dist = parse(data)
         for bi in range(padded.shape[0]):
             block = padded[bi, : lengths[bi]]
@@ -49,8 +49,8 @@ class TestMatcher:
                     block[k : k + ln], block[k - d : k - d + ln]
                 )
 
-    def test_parse_is_nonoverlapping(self, metamorphosis):
-        data = metamorphosis[:4096]
+    def test_parse_is_nonoverlapping(self, text_corpus):
+        data = text_corpus[:4096]
         _, _, is_match, emit_len, _ = parse(data)
         covered = -1
         for k in np.nonzero(is_match[0])[0]:
@@ -60,29 +60,28 @@ class TestMatcher:
 
 class TestEndToEnd:
     @pytest.mark.parametrize("size", [100, 4096, 20000])
-    def test_roundtrip(self, metamorphosis, size):
+    def test_roundtrip(self, text_corpus, size):
         codec = LZ4Codec(LZ4Config(mode="fast"))
-        data = metamorphosis[:size]
-        enc = codec.encode(data, engine="tpu")
+        data = text_corpus[:size]
+        enc = codec.encode(data, engine="device")
         assert codec.decode(enc) == data
         assert decode_fast(enc) == data  # python decoder agrees
 
-    def test_compresses_text(self, metamorphosis):
+    def test_compresses_text(self, text_corpus):
         codec = LZ4Codec(LZ4Config(mode="fast"))
-        enc = codec.encode(metamorphosis, engine="tpu")
-        host = codec.encode(metamorphosis, engine="python")
-        assert len(enc) < len(metamorphosis)
+        enc = codec.encode(text_corpus, engine="device")
+        host = codec.encode(text_corpus, engine="python")
+        assert len(enc) < len(text_corpus)
         # All-positions insertion finds at least as many candidates as the
         # single-probe host table, and emission-time greedy extension
-        # undoes the carry cap / segment truncation — the TPU parse now
-        # matches or beats the host encoder's ratio (measured 75,699 vs
-        # 75,777 B on this corpus).
+        # undoes the carry cap / segment truncation — the device parse
+        # matches the host encoder's ratio within 2%.
         assert len(enc) <= len(host) * 1.02
 
     def test_noise_stored_raw(self, rng):
         codec = LZ4Codec(LZ4Config(mode="fast"))
         data = bytes(rng.integers(0, 256, size=10000, dtype=np.uint8))
-        enc = codec.encode(data, engine="tpu")
+        enc = codec.encode(data, engine="device")
         assert codec.decode(enc) == data
         assert len(enc) <= len(data) + 20 + 4 * 3 + 16
 
@@ -93,7 +92,7 @@ class TestEndToEnd:
         codec = LZ4Codec(LZ4Config(mode="fast"))
         period = bytes(range(256)) + b"\x00\xff\xfe" * 7
         data = period * 150  # ~41 KB: 3 blocks, period not a divisor of 2^14
-        enc = codec.encode(data, engine="tpu")
+        enc = codec.encode(data, engine="device")
         assert codec.decode(enc) == data
         assert len(enc) < len(data) // 2
         if native_available():
@@ -102,13 +101,13 @@ class TestEndToEnd:
     def test_empty_and_tiny(self):
         codec = LZ4Codec(LZ4Config(mode="fast"))
         for data in (b"", b"a", b"abc"):
-            assert codec.decode(codec.encode(data, engine="tpu")) == data
+            assert codec.decode(codec.encode(data, engine="device")) == data
 
 
 @pytest.mark.skipif(not native_available(), reason="native backend not built")
 class TestNativeEmitter:
-    def test_matches_python_emitter(self, metamorphosis):
-        data = metamorphosis[:4096]
+    def test_matches_python_emitter(self, text_corpus):
+        data = text_corpus[:4096]
         padded, lengths, is_match, emit_len, emit_dist = parse(data)
         n = int(lengths[0])
         raw = bytes(padded[0, :n].astype(np.uint8))
@@ -120,8 +119,8 @@ class TestNativeEmitter:
         )
         assert nat == py
 
-    def test_batched_matches_per_block(self, metamorphosis):
-        data = (metamorphosis * 2)[:100_000]
+    def test_batched_matches_per_block(self, text_corpus):
+        data = (text_corpus * 2)[:100_000]
         padded, lengths, is_match, emit_len, emit_dist = parse(data)
         nat = native_backend()
         batched = nat.emit_blocks(
@@ -152,11 +151,11 @@ class TestEmitterExtension:
         # rest of the block: a handful of bytes, not 8192/32 sequences.
         assert len(payload) < 64
 
-    def test_extension_respects_block_end(self, metamorphosis):
+    def test_extension_respects_block_end(self, text_corpus):
         codec = LZ4Codec(LZ4Config(mode="fast"))
         for n in (16384 - 1, 16384, 16384 + 1, 40000):
-            data = (b"ab" * 10000 + metamorphosis)[:n]
-            enc = codec.encode(data, engine="tpu")
+            data = (b"ab" * 10000 + text_corpus)[:n]
+            enc = codec.encode(data, engine="device")
             assert codec.decode(enc) == data
 
 
@@ -171,10 +170,10 @@ class TestSortMatcherInvariants:
         assert emit_len.max() <= 4 * LCP_WORDS
         assert is_match.sum() > 8000 // (4 * LCP_WORDS) - 2
 
-    def test_matches_never_cross_segment_boundary(self, metamorphosis):
+    def test_matches_never_cross_segment_boundary(self, text_corpus):
         from lz4jpeg_tpu.ops.lz4_fast import SEG
 
-        data = (metamorphosis * 2)[:32768]
+        data = (text_corpus * 2)[:32768]
         _, _, is_match, emit_len, _ = parse(data)
         for bi in range(is_match.shape[0]):
             ks = np.nonzero(is_match[bi])[0]
@@ -182,13 +181,12 @@ class TestSortMatcherInvariants:
             assert np.all(ends <= (ks // SEG + 1) * SEG)
 
     @pytest.mark.parametrize("seg", [64, 128, 512])
-    def test_seg_parameter_parses_validly(self, metamorphosis, seg):
+    def test_seg_parameter_parses_validly(self, text_corpus, seg):
         """Any power-of-two segment size yields a valid, decodable parse:
-        matches stay within their segment and the emitted frame round-trips
-        (the seg sweep in profiles/profile_seg.py relies on this)."""
+        matches stay within their segment and the emitted frame round-trips."""
         from lz4jpeg_tpu.formats.fast_frame import assemble_frame
 
-        data = (metamorphosis * 2)[:32768]
+        data = (text_corpus * 2)[:32768]
         padded, lengths = pad_blocks_fast(data)
         is_match, emit_len, _ = map(
             np.asarray,
@@ -204,16 +202,16 @@ class TestSortMatcherInvariants:
     def test_giant_run_roundtrip(self):
         codec = LZ4Codec(LZ4Config(mode="fast"))
         data = b"\0" * 100_000 + b"tail" * 10
-        enc = codec.encode(data, engine="tpu")
+        enc = codec.encode(data, engine="device")
         assert codec.decode(enc) == data
         assert len(enc) < len(data) // 4  # still compresses hard
 
-    def test_compact_parse_roundtrips_dense_fields(self, metamorphosis):
+    def test_compact_parse_roundtrips_dense_fields(self, text_corpus):
         import jax
 
         from lz4jpeg_tpu.ops.lz4_fast import compact_parse
 
-        data = metamorphosis[:40000]
+        data = text_corpus[:40000]
         padded, lengths, is_match, emit_len, emit_dist = parse(data)
         pos_sorted, packed, counts = map(
             np.asarray,

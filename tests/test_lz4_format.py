@@ -64,8 +64,8 @@ def test_truncated_frame_raises():
         unpack_frame(packed[:-2])
 
 
-def test_wire_compat_with_oracle_encoder(metamorphosis):
-    data = metamorphosis[:1200]
+def test_wire_compat_with_oracle_encoder(text_corpus):
+    data = text_corpus[:1200]
     data = bytes(b if b not in (0x0A, 0x0D) else 0x20 for b in data)
     compressed = lz4_encode_oracle(data)
     # unpack → repack must be byte-identical (no information loss).

@@ -43,8 +43,8 @@ class TestDecode:
     def test_roundtrip(self, data):
         assert lzw_decode(lzw_encode(data)) == data
 
-    def test_roundtrip_corpus(self, metamorphosis):
-        sample = metamorphosis[:5000].replace(b"\r", b" ").replace(b"\n", b" ")
+    def test_roundtrip_corpus(self, text_corpus):
+        sample = text_corpus[:5000].replace(b"\r", b" ").replace(b"\n", b" ")
         assert lzw_decode(lzw_encode(sample)) == sample
 
     def test_cscsc_corner_case(self):

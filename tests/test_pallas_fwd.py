@@ -1,137 +1,125 @@
-"""Forward megakernel (ops/pallas_fwd.py) — interpret-mode parity.
+"""Forward kernel (ops/pallas_fwd.py): interpret-mode parity with the XLA
+chain, its shapes and padding, and where the pipeline chooses it.
 
-The kernel must be bit-identical to the XLA reference chain: color
-transform → 4:2:2 subsample → fused plane einsum → sparse-delta RLE
-(the chain it replaces on TPU).  On-chip identity was measured at
-0/268M mismatched coefficients (profiles/probe_megakernel.py)."""
+The kernel must produce the combined sparse16 stream of the XLA chain —
+color → 4:2:2 subsample → fused basis matmul → sparse-delta RLE —
+bit for bit on the CPU interpreter.  On the card the same comparison is
+made at full size by ``chip_smoke.py``."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax import export
 
-from lz4jpeg_tpu.ops.color import (
-    chroma_subsample_422,
-    rgb_to_ycbcr,
-    split_mcus,
-)
-from lz4jpeg_tpu.ops.fused import fused_forward_jnp
-from lz4jpeg_tpu.ops.pallas_fwd import (
-    CB_SLICE,
-    CR_SLICE,
-    LUM_SLICE,
-    forward_megakernel,
-    rgb_to_kt,
-    sparse_lengths,
-)
+from lz4jpeg_tpu.config import JPEGConfig
+from lz4jpeg_tpu.models.jpeg import JPEGPipeline
+from lz4jpeg_tpu.ops.pallas_fwd import TILE_BLOCKS, forward_kernel
 from lz4jpeg_tpu.ops.quantize import (
     CHROMINANCE_QUANTIZATION_TABLE,
     LUMINANCE_QUANTIZATION_TABLE,
+    scale_table,
 )
-from lz4jpeg_tpu.ops.rle import rle_encode_sparse16
+
+_TRITON_CALL = "__gpu$xla.gpu.triton"
 
 
-def _reference_sparse(rgb_batch):
-    """Per-channel sparse streams through the staged XLA ops."""
-    outs = {"lum": [], "r": [], "b": []}
-    lens = {"lum": [], "r": [], "b": []}
-    for frame in rgb_batch:
-        y, cr, cb = rgb_to_ycbcr(jnp.asarray(frame), jnp.float32)
-        lum, r, b = split_mcus(
-            y, chroma_subsample_422(cr), chroma_subsample_422(cb)
-        )
-        for name, tiles, table, w, h in (
-            ("lum", lum, LUMINANCE_QUANTIZATION_TABLE, 8, 8),
-            ("r", r, CHROMINANCE_QUANTIZATION_TABLE, 4, 8),
-            ("b", b, CHROMINANCE_QUANTIZATION_TABLE, 4, 8),
-        ):
-            zz = fused_forward_jnp(tiles, table, w, h)
-            sp, ln = rle_encode_sparse16(zz.astype(jnp.int16))
-            outs[name].append(np.asarray(sp))
-            lens[name].append(np.asarray(ln))
-    return (
-        {c: np.concatenate(v) for c, v in outs.items()},
-        {c: np.concatenate(v) for c, v in lens.items()},
+def _runs_image(rng, shape):
+    rgb = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    rgb[..., ::2, :] = rgb[..., 1::2, :]  # horizontal pairs → runs
+    return rgb
+
+
+def _kernel(rgb, lum_t=LUMINANCE_QUANTIZATION_TABLE,
+            chr_t=CHROMINANCE_QUANTIZATION_TABLE):
+    return np.asarray(
+        forward_kernel(jnp.asarray(rgb), lum_t, chr_t, interpret=True)
     )
 
 
-class TestForwardMegakernel:
-    def test_bit_identical_to_xla_chain(self):
-        rng = np.random.default_rng(0)
-        rgb = rng.integers(0, 256, size=(2, 64, 64, 3)).astype(np.uint8)
-        rgb[:, :, ::2] = rgb[:, :, 1::2]  # create runs
-        ref, ref_lens = _reference_sparse(rgb)
+def _cuda_module_text(fn, shape) -> str:
+    """``fn`` lowered for a CUDA device (no card needed to lower)."""
+    exp = export.export(
+        jax.jit(fn),
+        platforms=["cuda"],
+        disabled_checks=[export.DisabledSafetyCheck.custom_call(_TRITON_CALL)],
+    )(jax.ShapeDtypeStruct(shape, jnp.uint8))
+    return exp.mlir_module()
 
-        kt = rgb_to_kt(jnp.asarray(rgb))
-        combined = np.asarray(
-            forward_megakernel(
-                kt, LUMINANCE_QUANTIZATION_TABLE,
-                CHROMINANCE_QUANTIZATION_TABLE, interpret=True,
-            )
-        )
-        assert combined.shape == (2 * 8 * 8, 128)
-        assert np.array_equal(combined[:, LUM_SLICE], ref["lum"])
-        assert np.array_equal(combined[:, CR_SLICE], ref["r"])
-        assert np.array_equal(combined[:, CB_SLICE], ref["b"])
 
-        lens = {k: np.asarray(v) for k, v in
-                sparse_lengths(jnp.asarray(combined)).items()}
-        for c in ("lum", "r", "b"):
-            assert np.array_equal(lens[c], ref_lens[c])
+class TestForwardKernel:
+    @pytest.mark.parametrize("shape", [(64, 64), (24, 72), (8, 8), (16, 1032)])
+    def test_bit_identical_to_xla_chain(self, shape):
+        rng = np.random.default_rng(sum(shape))
+        rgb = _runs_image(rng, shape + (3,))
+        pipe = JPEGPipeline(JPEGConfig())
+        ref = np.asarray(jax.jit(pipe._forward_sparse16_xla)(rgb))
+        got = _kernel(rgb)
+        n = (shape[0] // 8) * (shape[1] // 8)
+        assert got.shape == ref.shape == (n, 128)
+        np.testing.assert_array_equal(got, ref)
 
-    def test_rgb_to_kt_layout(self):
-        rng = np.random.default_rng(1)
-        rgb = rng.integers(0, 256, size=(24, 16, 3)).astype(np.uint8)
-        kt = np.asarray(rgb_to_kt(jnp.asarray(rgb)))
-        assert kt.shape == (3, 64, (24 // 8) * (16 // 8))
-        # block n=(bi*bw+bj), position k=(r*8+c) ↔ pixel (8bi+r, 8bj+c)
-        for ch in range(3):
-            for n, (bi, bj) in enumerate((i, j) for i in range(3) for j in range(2)):
-                for k in (0, 9, 63):
-                    r, c = k // 8, k % 8
-                    assert kt[ch, k, n] == rgb[8 * bi + r, 8 * bj + c, ch]
-
-    def test_padding_blocks_are_valid_streams(self):
-        """N not a C_CHUNK multiple: padded blocks must decode to zeros
-        (slot 0 = bias, rest zero) before the caller slices them off —
-        asserted indirectly: output equals reference after slicing."""
+    def test_padding_rows_sliced_off(self):
+        """27 blocks is not a TILE_BLOCKS multiple: the last program's
+        spare rows must neither reach the output nor disturb block 26."""
         rng = np.random.default_rng(2)
-        rgb = rng.integers(0, 256, size=(1, 8, 8, 3)).astype(np.uint8)
-        ref, _ = _reference_sparse(rgb)
-        kt = rgb_to_kt(jnp.asarray(rgb))
-        combined = np.asarray(
-            forward_megakernel(
-                kt, LUMINANCE_QUANTIZATION_TABLE,
-                CHROMINANCE_QUANTIZATION_TABLE, interpret=True,
+        rgb = rng.integers(0, 256, size=(24, 72, 3), dtype=np.uint8)
+        assert (3 * 9) % TILE_BLOCKS
+        got = _kernel(rgb)
+        assert got.shape == (27, 128)
+        pipe = JPEGPipeline(JPEGConfig())
+        ref = np.asarray(jax.jit(pipe._forward_sparse16_xla)(rgb))
+        np.testing.assert_array_equal(got[-1], ref[-1])
+
+    def test_vmap_batches_frames(self):
+        rng = np.random.default_rng(4)
+        rgbs = _runs_image(rng, (3, 16, 40, 3))
+        pipe = JPEGPipeline(JPEGConfig())
+        got = np.asarray(jax.vmap(
+            lambda x: forward_kernel(
+                x, pipe._tables["lum"], pipe._tables["r"], interpret=True
             )
-        )
-        assert combined.shape == (1, 128)
-        assert np.array_equal(combined[:, LUM_SLICE], ref["lum"])
+        )(jnp.asarray(rgbs)))
+        ref = np.asarray(jax.vmap(pipe._forward_sparse16_xla)(rgbs))
+        np.testing.assert_array_equal(got, ref)
 
     def test_quality_scaled_tables(self):
-        from lz4jpeg_tpu.ops.quantize import scale_table
-
         rng = np.random.default_rng(3)
-        rgb = rng.integers(0, 256, size=(1, 32, 32, 3)).astype(np.uint8)
-        lum_t = scale_table(LUMINANCE_QUANTIZATION_TABLE, 80)
-        chr_t = scale_table(CHROMINANCE_QUANTIZATION_TABLE, 80)
-
-        outs = {"lum": [], "r": [], "b": []}
-        y, cr, cb = rgb_to_ycbcr(jnp.asarray(rgb[0]), jnp.float32)
-        lum, r, b = split_mcus(
-            y, chroma_subsample_422(cr), chroma_subsample_422(cb)
+        rgb = rng.integers(0, 256, size=(32, 32, 3), dtype=np.uint8)
+        pipe = JPEGPipeline(JPEGConfig(quality=80))
+        ref = np.asarray(jax.jit(pipe._forward_sparse16_xla)(rgb))
+        got = _kernel(
+            rgb,
+            scale_table(LUMINANCE_QUANTIZATION_TABLE, 80),
+            scale_table(CHROMINANCE_QUANTIZATION_TABLE, 80),
         )
-        for name, tiles, table, w, h in (
-            ("lum", lum, lum_t, 8, 8),
-            ("r", r, chr_t, 4, 8),
-            ("b", b, chr_t, 4, 8),
-        ):
-            zz = fused_forward_jnp(tiles, table, w, h)
-            sp, _ = rle_encode_sparse16(zz.astype(jnp.int16))
-            outs[name] = np.asarray(sp)
+        np.testing.assert_array_equal(got, ref)
 
-        kt = rgb_to_kt(jnp.asarray(rgb))
-        combined = np.asarray(
-            forward_megakernel(kt, lum_t, chr_t, interpret=True)
-        )
-        assert np.array_equal(combined[:, LUM_SLICE], outs["lum"])
-        assert np.array_equal(combined[:, CR_SLICE], outs["r"])
-        assert np.array_equal(combined[:, CB_SLICE], outs["b"])
+    def test_rejects_ragged_shapes(self):
+        with pytest.raises(ValueError, match="8-aligned"):
+            forward_kernel(
+                jnp.zeros((12, 16, 3), jnp.uint8),
+                LUMINANCE_QUANTIZATION_TABLE,
+                CHROMINANCE_QUANTIZATION_TABLE,
+            )
+
+
+class TestKernelChoice:
+    """The pipeline calls the kernel only when lowering for CUDA with an
+    8-aligned shape; everything else is the XLA chain."""
+
+    def test_cuda_aligned_shape_lowers_the_kernel(self):
+        pipe = JPEGPipeline(JPEGConfig())
+        text = _cuda_module_text(pipe._forward_rle_impl, (16, 64, 3))
+        assert _TRITON_CALL in text
+
+    def test_cuda_ragged_shape_runs_xla(self):
+        pipe = JPEGPipeline(JPEGConfig())
+        text = _cuda_module_text(pipe._forward_rle_impl, (12, 64, 3))
+        assert _TRITON_CALL not in text
+
+    def test_cpu_runs_xla(self):
+        pipe = JPEGPipeline(JPEGConfig())
+        rgb = jax.ShapeDtypeStruct((16, 64, 3), jnp.uint8)
+        text = jax.jit(pipe._forward_rle_impl).lower(rgb).as_text()
+        assert "triton" not in text

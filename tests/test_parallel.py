@@ -70,8 +70,8 @@ class TestShardedJPEG:
 
 
 class TestShardedLZ4:
-    def test_matches_unsharded_parse(self, mesh, metamorphosis):
-        text = metamorphosis[:4800].replace(b"\r", b" ").replace(b"\n", b" ")
+    def test_matches_unsharded_parse(self, mesh, text_corpus):
+        text = text_corpus[:4800].replace(b"\r", b" ").replace(b"\n", b" ")
         padded, lengths = pad_blocks(text, 300)
         padded, n = pad_to_devices(padded, mesh.devices.size, pad_value=-1)
         is_match, emit_len, emit_dist = sharded_block_parse(padded, mesh)
@@ -81,8 +81,8 @@ class TestShardedLZ4:
         np.testing.assert_array_equal(emit_len, ref_l)
         np.testing.assert_array_equal(emit_dist, ref_d)
 
-    def test_psum_counts(self, mesh, metamorphosis):
-        text = metamorphosis[:4800].replace(b"\r", b" ").replace(b"\n", b" ")
+    def test_psum_counts(self, mesh, text_corpus):
+        text = text_corpus[:4800].replace(b"\r", b" ").replace(b"\n", b" ")
         padded, _ = pad_blocks(text, 300)
         padded, _ = pad_to_devices(padded, mesh.devices.size, pad_value=-1)
         is_match, emit_len, _ = sharded_block_parse(padded, mesh)
@@ -171,12 +171,12 @@ class TestShardedInverse:
 
 
 class TestShardedFastLZ4:
-    def test_matches_unsharded(self, mesh, metamorphosis):
+    def test_matches_unsharded(self, mesh, text_corpus):
         from lz4jpeg_tpu.ops.lz4_fast import fast_match_blocks, pad_blocks_fast
         from lz4jpeg_tpu.parallel.lz4 import sharded_fast_parse
         import jax.numpy as jnp
 
-        data = metamorphosis[: 8 * 16384]  # 8 blocks, one per device
+        data = text_corpus[: 8 * 16384]  # 8 blocks, one per device
         padded, lengths = pad_blocks_fast(data)
         s_match, s_len, s_dist = sharded_fast_parse(padded, lengths, mesh)
         r_match, r_len, r_dist = map(
@@ -187,16 +187,16 @@ class TestShardedFastLZ4:
         np.testing.assert_array_equal(s_len, r_len)
         np.testing.assert_array_equal(s_dist, r_dist)
 
-    def test_roundtrip_through_emitter(self, mesh, metamorphosis):
+    def test_roundtrip_through_emitter(self, mesh, text_corpus):
         from lz4jpeg_tpu.formats.fast_frame import (
             assemble_frame,
             decode_fast,
             emit_block_from_parse,
         )
-        from lz4jpeg_tpu.ops.lz4_fast import TPU_BLOCK_LOG, pad_blocks_fast
+        from lz4jpeg_tpu.ops.lz4_fast import DEVICE_BLOCK_LOG, pad_blocks_fast
         from lz4jpeg_tpu.parallel.lz4 import sharded_fast_parse
 
-        data = metamorphosis[: 8 * 16384]
+        data = text_corpus[: 8 * 16384]
         padded, lengths = pad_blocks_fast(data)
         is_match, emit_len, emit_dist = sharded_fast_parse(
             padded, lengths, mesh
@@ -211,7 +211,7 @@ class TestShardedFastLZ4:
                 )
             )
             raws.append(raw)
-        enc = assemble_frame(payloads, raws, len(data), TPU_BLOCK_LOG)
+        enc = assemble_frame(payloads, raws, len(data), DEVICE_BLOCK_LOG)
         assert decode_fast(enc) == data
         assert len(enc) < len(data)
 
@@ -270,7 +270,7 @@ class TestShardedSparseJPEG:
         """Non-8-multiple shapes must NOT go through the band shard (RGB
         zero-padding would run the color transform over padding, which
         differs from the plane-domain padding the pipeline uses — the
-        round-5 review's 16x20 counterexample)."""
+        16x20 counterexample)."""
         from lz4jpeg_tpu.models.jpeg import JPEGPipeline
         from lz4jpeg_tpu.parallel.jpeg import ShardedSparseJPEG
 

@@ -1,6 +1,6 @@
 """Sparse-delta RLE interchange (sparse16) — spec, bijection, folding.
 
-The round-5 layout (``ops/rle.py::rle_encode_sparse16``) stores each
+The layout (``ops/rle.py::rle_encode_sparse16``) stores each
 run's value delta at its start position (zero elsewhere).  These tests
 pin the three contracts the production paths rely on:
 

@@ -57,14 +57,40 @@ class TestIO:
 
 
 class TestInputs:
-    def test_passage_is_printable(self, metamorphosis, rng):
-        text = extract_random_passage(metamorphosis, 5000, rng)
+    def test_passage_is_printable(self, text_corpus, rng):
+        text = extract_random_passage(text_corpus, 5000, rng)
         assert len(text) == 5000
         assert b"\n" not in text and b"\r" not in text
 
-    def test_passage_too_long_rejected(self, metamorphosis, rng):
+    def test_passage_too_long_rejected(self, text_corpus, rng):
         with pytest.raises(ValueError):
-            extract_random_passage(metamorphosis, 10**9, rng)
+            extract_random_passage(text_corpus, 10**9, rng)
+
+    @pytest.mark.parametrize("size", [1, 4096, 120_000])
+    def test_text_corpus_is_seeded_prose(self, size):
+        import zlib
+
+        from lz4jpeg_tpu.utils.inputs import generate_text_corpus
+
+        text = generate_text_corpus(size, seed=3)
+        assert len(text) == size
+        assert text == generate_text_corpus(size, seed=3)
+        assert all(32 <= c < 127 or c == 10 for c in text)
+        if size >= 4096:
+            assert text != generate_text_corpus(size, seed=4)
+            # Compressible like prose, not like noise.
+            assert len(zlib.compress(text)) < 0.5 * size
+
+    def test_photo_image_is_seeded_and_structured(self):
+        from lz4jpeg_tpu.utils.inputs import generate_photo_image
+
+        a = generate_photo_image(48, 64, np.random.default_rng(5))
+        b = generate_photo_image(48, 64, np.random.default_rng(5))
+        assert a.shape == (48, 64, 3) and a.dtype == np.uint8
+        np.testing.assert_array_equal(a, b)
+        # Smooth: neighbouring pixels are far closer than in noise.
+        step = np.abs(np.diff(a.astype(np.int32), axis=1)).mean()
+        assert step < 20
 
 
 class TestMetrics:
@@ -258,7 +284,9 @@ class TestProfiling:
         from lz4jpeg_tpu.utils.profiling import fenced
 
         f = fenced(lambda x: {"a": x * 2, "b": x + 1})
-        assert f(jnp.ones((4, 4))) == 32.0 + 32.0
+        out = f(jnp.ones((4, 4)))
+        assert float(out["a"].sum()) == 32.0
+        assert float(out["b"].sum()) == 32.0
 
     def test_time_device_returns_runs(self):
         import jax.numpy as jnp
@@ -267,6 +295,48 @@ class TestProfiling:
 
         times = time_device(lambda x: x @ x, jnp.ones((32, 32)), runs=3, warmup=1)
         assert len(times) == 3 and all(t > 0 for t in times)
+
+
+class TestDevicePeaks:
+    def test_h200_peaks(self):
+        from lz4jpeg_tpu.bench.roofline import device_peaks
+
+        peaks = device_peaks("NVIDIA H200")
+        assert peaks["hbm_gbs"] == 4800.0 and peaks["fp32_tflops"] == 67.0
+
+    def test_unknown_device_kind_raises(self):
+        from lz4jpeg_tpu.bench.roofline import device_peaks
+
+        with pytest.raises(ValueError, match="no published peaks"):
+            device_peaks("cpu")
+
+
+class TestCompileCache:
+    @pytest.mark.parametrize("env", ["/some/cache", None])
+    def test_cache_dir_follows_env(self, monkeypatch, env):
+        import jax
+
+        from lz4jpeg_tpu.utils import compile_cache
+
+        if env is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            expected = os.path.join(compile_cache.CHECKOUT, ".jax_cache")
+        else:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env)
+            expected = env
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            assert compile_cache.enable_compile_cache() == expected
+            assert jax.config.jax_compilation_cache_dir == expected
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+
+    def test_default_is_inside_the_checkout(self):
+        from lz4jpeg_tpu.utils import compile_cache
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert compile_cache.CHECKOUT == root
+        assert os.path.isdir(os.path.join(root, "lz4jpeg_tpu"))
 
 
 class TestScaling:
@@ -289,7 +359,7 @@ class TestScaling:
 
 class TestEntropyAB:
     def test_ab_runs_and_paths_agree(self, tmp_path):
-        """The A/B harness (VERDICT r1 #7) must produce bit-identical
+        """The A/B harness must produce bit-identical
         streams from both placements and write a decision artifact."""
         import json
 
@@ -344,11 +414,11 @@ class TestInspect:
         assert "parity frame: 2 block(s)" in out
         assert "token=0xF1" in out  # first golden sequence
 
-    def test_fast_frame_details(self, metamorphosis, capsys, tmp_path):
+    def test_fast_frame_details(self, text_corpus, capsys, tmp_path):
         from lz4jpeg_tpu.formats.fast_frame import encode_fast
 
         src = tmp_path / "m.lz4t"
-        src.write_bytes(encode_fast(metamorphosis))
+        src.write_bytes(encode_fast(text_corpus))
         assert cli_main(["lz4", "inspect", str(src)]) == 0
         out = capsys.readouterr().out
         assert "LZ4T frame v1" in out and "compressed," in out
